@@ -6,7 +6,7 @@ from a YAML config, train System B's residual net on the Kalman prior with
 PageRank active selection, then measure per-tick serving latency on the
 fused streaming path against the P99.9 <= 0.90 ms budget.
 
-Run: python examples/temporal_nets.py  (CPU or TPU; a few minutes on CPU)
+Run: python examples/temporal_nets.py  (CPU or GPU; a few minutes on CPU)
 """
 import json
 import os

@@ -1,6 +1,6 @@
-"""sublinear_tpu — TPU-native sparse linear-algebra framework.
+"""sublinear_tpu — GPU-native sparse linear-algebra framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ruvnet/sublinear-time-solver (reference mounted at /root/reference): solvers
 for asymmetric diagonally-dominant systems (Neumann series, forward/backward
 push, random-walk Monte Carlo, hybrid, CG family, BMSSP), single-entry and

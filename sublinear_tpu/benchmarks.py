@@ -106,13 +106,33 @@ def bench_batch_solve(n: int = 1000, nrhs: int = 16, reps: int = 3, seed: int = 
     )
 
 
-def bench_spmv(n: int = 100_000, nnz_per_row: int = 100, reps: int = 5, seed: int = 11) -> BenchmarkResult:
-    """ELL SpMV throughput in nnz/s — the north-star roofline metric.
+# Published peak device-memory bandwidth, bytes/s, keyed by
+# ``jax.Device.device_kind`` (NVIDIA H200 data sheet, SXM part).  A device that
+# is not listed gets no roofline share: no peak is assumed for it.
+PEAK_BYTES_PER_S = {
+    "NVIDIA H200": 4.8e12,
+}
 
-    Roofline: the gather path reads ~12 B/nnz (value + col index + gathered x)
-    so a v5e at ~819 GB/s tops out near ~68 Gnnz/s; report the achieved
-    fraction.  Measured as K back-to-back matvecs inside one jitted scan (no
-    dispatch overhead), input varied per rep."""
+
+def peak_bytes_per_s(device_kind: str):
+    """Peak memory bandwidth of ``device_kind``, or None when unknown."""
+    return PEAK_BYTES_PER_S.get(device_kind)
+
+
+def ell_spmv_bytes(op, nnz: int) -> int:
+    """Bytes one ELL SpMV must move, computed from shapes: every stored slot
+    streams its f32 value and i32 column (padding included), every real
+    entry gathers one 32-byte sector of x, and y is written once; COO-tail
+    entries add value, row and column."""
+    k, n_pad = op.values.shape
+    return 8 * k * n_pad + 32 * nnz + 4 * n_pad + 12 * op.tail_nnz
+
+
+def bench_spmv(n: int = 100_000, nnz_per_row: int = 100, reps: int = 5, seed: int = 11) -> BenchmarkResult:
+    """ELL SpMV throughput in nnz/s and its share of the device's memory
+    roofline (``ell_spmv_bytes`` over ``PEAK_BYTES_PER_S``).  Measured as K
+    back-to-back matvecs inside one jitted scan (no dispatch overhead),
+    input varied per rep."""
     import jax
     import jax.numpy as jnp
 
@@ -125,11 +145,10 @@ def bench_spmv(n: int = 100_000, nnz_per_row: int = 100, reps: int = 5, seed: in
     x = A.pad_vector(slt.rhs(n, seed=seed))
     K = 32
 
-    # Timing protocol (see ARCHITECTURE.md "Measurement honesty"): operator
-    # passed as a jit ARGUMENT (closure constants run ~1000x slower through
-    # the remote-device path); synchronization via a host fetch of a
+    # Timing protocol: operator passed as a jit ARGUMENT (not baked into
+    # the executable as constants); synchronization via a host fetch of a
     # dependent scalar; cost derived from the DIFFERENCE of two chain
-    # lengths so round-trip jitter cancels.
+    # lengths so dispatch and transfer overheads cancel.
     import functools
 
     @functools.partial(jax.jit, static_argnames=("steps",))
@@ -153,15 +172,18 @@ def bench_spmv(n: int = 100_000, nnz_per_row: int = 100, reps: int = 5, seed: in
         walls[steps] = min(ts)
     per_matvec = max((walls[K] - walls[K // 4]) / (K - K // 4), 1e-9)
     nnz = A.nnz
-    nnz_per_s = nnz / per_matvec
-    bw = nnz_per_s * 12  # ~bytes/nnz on the gather path
+    bytes_per_s = ell_spmv_bytes(op, nnz) / per_matvec
+    device = jax.devices()[0]
+    peak = peak_bytes_per_s(device.device_kind)
     return BenchmarkResult(
         name=f"spmv-n{n}", domain="kernels", n=n, nnz=nnz,
         wall_ms=per_matvec * 1e3, iterations=K, residual=0.0, converged=True,
         extra={
-            "nnzPerSecond": nnz_per_s,
-            "approxBandwidthGBs": bw / 1e9,
-            "slotCount": getattr(op, "slot_count", getattr(op, "K", 0)),
+            "nnzPerSecond": nnz / per_matvec,
+            "bandwidthGBs": bytes_per_s / 1e9,
+            "rooflineShare": None if peak is None else bytes_per_s / peak,
+            "deviceKind": device.device_kind,
+            "slotCount": op.slot_count,
             "tailNnz": op.tail_nnz,
         },
     )

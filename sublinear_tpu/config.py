@@ -1,9 +1,9 @@
 """Backend/dtype configuration.
 
-The framework is TPU-first: float32 compute everywhere by default (TPU has no
-hardware f64).  On CPU (tests/oracles) float64 may be requested per-call via
-``SolverOptions.dtype`` once ``jax.config.update('jax_enable_x64', True)`` has
-been set by the host program.
+Device storage and arithmetic are float32 by default.  float64 may be
+requested per-call via ``SolverOptions.dtype`` once
+``jax.config.update('jax_enable_x64', True)`` has been set by the host
+program (tests use it for oracles).
 """
 from __future__ import annotations
 
@@ -20,9 +20,12 @@ def backend() -> str:
 
 @functools.lru_cache(maxsize=None)
 def enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache: Pallas/Mosaic compiles of the large
-    crossbar kernels take minutes; caching them on disk makes repeat solves,
-    benchmarks, and CLI invocations start in milliseconds.  Opt out with
+    """Persistent XLA compilation cache, so repeat solves, benchmarks and
+    CLI invocations reuse the programs an earlier process compiled.
+
+    The directory is ``JAX_COMPILATION_CACHE_DIR`` when set, else
+    ``<repo>/.jax_cache`` (a fixed path: the path is part of the cache
+    key).  Nothing else in the repository sets a cache path.  Opt out with
     SLT_NO_COMPILE_CACHE=1 (e.g. read-only filesystems)."""
     if os.environ.get("SLT_NO_COMPILE_CACHE"):
         return
@@ -43,7 +46,7 @@ def enable_compilation_cache() -> None:
 
 
 def configure_platform(platform: str | None = None) -> None:
-    """Select the jax platform for this process (``cpu``/``tpu``/plugin name).
+    """Select the jax platform for this process (``cpu``/``gpu``/plugin name).
 
     Priority: explicit argument > ``SLT_PLATFORM`` env var > leave jax's own
     defaults untouched.  Must run before the first jax computation — jax
@@ -74,17 +77,17 @@ def resolve_dtype(dtype):
     return jnp.dtype(dtype)
 
 
-# Row-padding granularity: float32 sublane tiling is (8, 128); we keep the
-# lane (last) dimension on the row axis in slot-major ELL, so pad rows to 128.
+# Row-padding granularity: operators pad their row and column domains to a
+# multiple of 128.  On a GPU that keeps every padded vector a whole number
+# of 512-byte (f32) rows, so vector loads stay aligned and coalesced and the
+# shard split of parallel/sharded.py lands on aligned boundaries.
 LANE = 128
-SUBLANE = 8
 
-# Below this size a dense MXU matvec beats any sparse path on TPU: the
-# gather engine costs ~16ns/element (5ns on the wide path) while a dense
-# n x n f32 matvec is pure HBM streaming (~0.5 ms at n=10k, 400 MB).  The
-# crossover vs ELL gather sits above 10k rows for typical densities; the
-# dense memory cost (4 n^2 bytes) is the real bound.
-DENSE_THRESHOLD = int(os.environ.get("SLT_DENSE_THRESHOLD", "10240"))
+# Up to this size the dense operator is used.  Measured on an H200 (700 W,
+# chip_smoke.py phase 6, random-sparse at density 1e-3): up to n=2048 dense
+# and ELL matvecs are both launch-bound at 7-11 us and trade places between
+# runs; from n=4096 up ELL wins (10 vs 23 us at 4096, 13 vs 239 us at 16384).
+DENSE_THRESHOLD = int(os.environ.get("SLT_DENSE_THRESHOLD", "2048"))
 
 
 def round_up(x: int, m: int) -> int:

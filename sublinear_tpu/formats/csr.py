@@ -4,7 +4,7 @@ Replaces the reference's constructor/packing layer
 (/root/reference/src/matrix/sparse.rs:16-905 CSR/CSC/COO storages and
 /root/reference/src/core/optimized-matrix.ts Float64Array CSR) with a single
 NumPy CSR used on the host for building, analysis, and conversion to the
-TPU device format (slot-major ELL + COO tail, see formats/ell.py).
+device format (slot-major ELL + COO tail, see formats/ell.py).
 
 All heavy per-element loops are vectorized NumPy; the optional native helper
 (sublinear_tpu/native) accelerates triplet packing for very large inputs.

@@ -9,10 +9,10 @@ multiply-adds:
     y[i] = sum_d data[d, i] * x[i + offset_d]
 
 where each shift is a STATIC slice of a zero-padded x — no gather at all.
-On TPU an arbitrary-index gather costs ~16 cycles/element (ARCHITECTURE.md
-"gather wall") while this path is pure VPU streaming at HBM roofline: for a
-tridiagonal n=100k system the matvec drops from ~1.5 ms (ELL wide-gather) to
-~microseconds of device time.
+Each diagonal is read once and x is read as D contiguous shifted slices,
+so the matvec streams at memory bandwidth with no index traffic: it moves
+4 B per stored diagonal entry against ELL's 8 B per slot plus a gathered
+sector of x.
 
 Selection is automatic (Matrix.op): a square matrix whose nonzeros occupy at
 most MAX_DIAGS distinct offsets gets a DiaOperator.  Matrices that are

@@ -5,9 +5,9 @@ pytree children; shape metadata is static so jit caches per (shape, K, tail)
 signature.
 
 Replaces the reference's storage layer (CSRStorage/CSCStorage/COOStorage,
-/root/reference/src/matrix/sparse.rs:16-905) with a TPU-layout format:
-row axis on the 128-lane minor dimension, zero-padded so kernels need no
-masks (see ops/spmv.py for the kernel rationale).
+/root/reference/src/matrix/sparse.rs:16-905) with a device format: slot-major
+ELL with the row axis minor, zero-padded to a multiple of 128 rows so
+kernels need no masks (see ops/spmv.py for the kernel rationale).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from .csr import CSR
 class EllOperator:
     """Slot-major ELL + COO-tail sparse operator in the padded domain."""
 
-    def __init__(self, values, cols, tail_vals, tail_rows, tail_cols, diag, inv_diag, *, shape, n_pad, m_pad, gather_aux=None):
+    def __init__(self, values, cols, tail_vals, tail_rows, tail_cols, diag, inv_diag, *, shape, n_pad, m_pad):
         self.values = values        # (K, n_pad)
         self.cols = cols            # (K, n_pad) int32 into padded column domain
         self.tail_vals = tail_vals  # (T,)
@@ -36,21 +36,18 @@ class EllOperator:
         self.shape = shape          # logical (n, m)
         self.n_pad = n_pad
         self.m_pad = m_pad
-        # (m_pad, 7) junk columns enabling the wide row-gather matvec (see
-        # ops/spmv.ell_matvec_wide); None below the gather-volume threshold
-        self.gather_aux = gather_aux
 
     # pytree protocol ------------------------------------------------------
     def tree_flatten(self):
         children = (self.values, self.cols, self.tail_vals, self.tail_rows,
-                    self.tail_cols, self.diag, self.inv_diag, self.gather_aux)
+                    self.tail_cols, self.diag, self.inv_diag)
         aux = (self.shape, self.n_pad, self.m_pad)
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         shape, n_pad, m_pad = aux
-        return cls(*children[:7], shape=shape, n_pad=n_pad, m_pad=m_pad, gather_aux=children[7])
+        return cls(*children, shape=shape, n_pad=n_pad, m_pad=m_pad)
 
     # properties -----------------------------------------------------------
     @property
@@ -72,10 +69,7 @@ class EllOperator:
 
     # products -------------------------------------------------------------
     def matvec(self, x: jax.Array) -> jax.Array:
-        if self.gather_aux is not None:
-            y = spmv.ell_matvec_wide(self.values, self.cols, x, self.gather_aux)
-        else:
-            y = spmv.ell_matvec(self.values, self.cols, x)
+        y = spmv.ell_matvec(self.values, self.cols, x)
         if self.tail_nnz:
             y = y + spmv.coo_matvec(self.tail_vals, self.tail_rows, self.tail_cols, x, self.n_pad)
         return y
@@ -113,7 +107,7 @@ class EllOperator:
 
 @jax.tree_util.register_pytree_node_class
 class DenseOperator:
-    """Dense padded operator — MXU path for small or dense matrices."""
+    """Dense padded operator — the path for small or dense matrices."""
 
     def __init__(self, data, diag, inv_diag, *, shape, n_pad, m_pad):
         self.data = data          # (n_pad, m_pad)
@@ -159,12 +153,10 @@ def _diag_arrays(csr: CSR, n_pad: int, dtype):
 
 
 def choose_slot_cap(row_nnz: np.ndarray) -> int:
-    """ELL slot cap minimizing measured device cost: slot entries cost
-    K*n gather work (the gather engine charges ~2 ns per row REGARDLESS of
-    whether the slot is padding), a COO-tail entry ~2-3 slot entries
-    (segment_sum; both the batch einsum and the single-RHS wide path
-    measured in this ratio — scratch/prof_r5_spmm4.py: n=100k K=27 full
-    coverage 5.47 ms/SpMM vs K=12 + 7.6% tail 3.97 ms).  Minimize
+    """ELL slot cap minimizing a byte-count cost model: every slot moves
+    its value and column index whether or not it is padding (K*n slot
+    entries), and a COO-tail entry moves value, row and column plus a
+    segment_sum scatter, counted as 3 slot entries.  Minimize
     K*n + 3*tail(K) over K via degree-histogram suffix sums."""
     if row_nnz.size == 0:
         return 1
@@ -208,12 +200,6 @@ def ell_from_csr(csr: CSR, dtype=None, slot_cap: int | None = None) -> EllOperat
     t_vals = csr.data[~in_ell]
 
     diag, inv_diag = _diag_arrays(csr, n_pad, dtype)
-    gather_aux = None
-    if K * n_pad >= spmv.WIDE_GATHER_THRESHOLD:
-        # deterministic junk columns for the wide row-gather path
-        gather_aux = jnp.asarray(
-            np.random.default_rng(0).standard_normal((m_pad, 7)), dtype
-        )
     return EllOperator(
         jnp.asarray(values, dtype),
         jnp.asarray(cols),
@@ -225,7 +211,6 @@ def ell_from_csr(csr: CSR, dtype=None, slot_cap: int | None = None) -> EllOperat
         shape=(n, m),
         n_pad=n_pad,
         m_pad=m_pad,
-        gather_aux=gather_aux,
     )
 
 

@@ -2,9 +2,9 @@
 
 Reference parity: StreamingMatrix's chunked processing
 (/root/reference/src/matrix/optimized.rs:451+) and the memory-limit error
-taxonomy (E007).  TPU re-design: the matrix is packed into row-block panels
+taxonomy (E007).  Device design: the matrix is packed into row-block panels
 held in HOST memory as slot-major ELL arrays; a matvec streams one panel at
-a time through the chip (device_put -> fused gather/FMA -> fetch y-block),
+a time through the device (device_put -> fused gather/FMA -> fetch y-block),
 so peak device residency is ONE panel + x + y regardless of total nnz.
 Trade: host<->device transfer per matvec — this is the graceful-degradation
 path for matrices whose packed operator exceeds the device budget, not a
@@ -16,8 +16,10 @@ Memory policy ("documented max-n policy"):
     BEFORE allocating — no silent OOM;
   * ``StreamingOperator`` has no device ceiling (panels sized to
     ``panel_budget`` bytes); host RAM is the only limit;
-  * the budget defaults to the device's reported bytes_limit minus a 20%
-    headroom, overridable with SLT_MEMORY_LIMIT_BYTES.
+  * the budget is ``SLT_MEMORY_LIMIT_BYTES`` when set, else the device's
+    reported bytes_limit minus a 20% headroom (on the CPU backend the
+    device memory is host RAM, read from the OS).  There is no built-in
+    default: a device that reports no limit raises E007.
 """
 from __future__ import annotations
 
@@ -28,22 +30,24 @@ import numpy as np
 from ..errors import MemoryLimitError
 from .csr import CSR
 
-_DEFAULT_BUDGET = 12 * 1024**3  # conservative v5e default (16 GB HBM)
-
 
 def memory_budget_bytes() -> int:
     env = os.environ.get("SLT_MEMORY_LIMIT_BYTES")
     if env:
         return int(env)
-    try:
-        import jax
+    import jax
 
-        stats = jax.local_devices()[0].memory_stats()
-        if stats and "bytes_limit" in stats:
-            return int(stats["bytes_limit"] * 0.8)
-    except Exception:
-        pass
-    return _DEFAULT_BUDGET
+    device = jax.local_devices()[0]
+    stats = device.memory_stats()
+    if stats and "bytes_limit" in stats:
+        return int(stats["bytes_limit"] * 0.8)
+    if device.platform == "cpu":
+        return int(os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") * 0.8)
+    raise MemoryLimitError(
+        f"device {device.device_kind!r} reports no memory limit; set "
+        f"SLT_MEMORY_LIMIT_BYTES to the bytes an operator may occupy",
+        {"device": device.device_kind},
+    )
 
 
 def estimate_op_bytes(csr: CSR, kind: str) -> int:
@@ -61,15 +65,11 @@ def estimate_op_bytes(csr: CSR, kind: str) -> int:
         offs = dia_offsets(csr)
         d = len(offs) if offs is not None else 1
         return d * n_pad * 4 + vec
-    if kind == "xbar":
-        # source planes (idx+val), banked idx2, idx3, tail — ~40 B/nnz plus
-        # fixed 16384x128 routing grids
-        return int(40 * max(csr.nnz, 1) + 4 * 16384 * 128 * 4) + vec
-    # ell: K slots of (vals f32 + cols i32) over n_pad, wide-gather aux
+    # ell: K slots of (vals f32 + cols i32) over n_pad
     row_nnz = csr.row_nnz()
     K = int(row_nnz.max()) if row_nnz.size else 1
     K = max(min(K, 64), 1)  # ell_from_csr caps slots and tails the rest
-    return K * m_pad * 8 + m_pad * 8 * 4 + vec
+    return K * m_pad * 8 + vec
 
 
 def check_memory_budget(csr: CSR, kind: str, budget: int | None = None) -> int:

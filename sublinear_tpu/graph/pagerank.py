@@ -1,4 +1,4 @@
-"""PageRank / personalized PageRank on TPU.
+"""PageRank / personalized PageRank on the device.
 
 Reference semantics: ``SublinearSolver.computePageRank``
 (/root/reference/src/core/solver.ts:664-722) builds the system
@@ -7,7 +7,7 @@ Reference semantics: ``SublinearSolver.computePageRank``
 it with ranking statistics.  Defaults: damping 0.85, epsilon 1e-6,
 max_iterations 1000.
 
-TPU re-design: the linear system is solved by an on-device power/Richardson
+Device re-design: the linear system is solved by an on-device power/Richardson
 iteration x <- (1-a) v + a (P^T x + dangling_mass * v), which is exactly the
 Neumann series of the PageRank system and runs entirely in one
 ``lax.while_loop`` (no per-iteration host syncs).  The column-stochastic

@@ -3,7 +3,7 @@
 Parity: /root/reference/scripts/social_networks/ (influence propagation,
 opinion dynamics, centrality/community workloads over GML fixtures).
 
-TPU forms:
+Device forms:
   - Friedkin-Johnsen opinion dynamics is a DD solve:
         x = (I - (1-s) W)^-1 s x0   (s = susceptibility to own prior)
     solved with the library's solvers.

@@ -360,9 +360,9 @@ def cmd_serve_http(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="sublinear-tpu",
-        description="TPU-native sublinear-time solver for diagonally-dominant systems",
+        description="GPU-native sublinear-time solver for diagonally-dominant systems",
     )
-    p.add_argument("--platform", help="jax platform override (cpu/tpu); also SLT_PLATFORM env")
+    p.add_argument("--platform", help="jax platform override (cpu/cuda); also SLT_PLATFORM env")
     sub = p.add_subparsers(dest="command", required=True)
 
     s = sub.add_parser("solve", help="solve Ax=b from JSON files")

@@ -507,7 +507,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=3000)
-    ap.add_argument("--platform", help="jax platform override (cpu/tpu); also SLT_PLATFORM env")
+    ap.add_argument("--platform", help="jax platform override (cpu/cuda); also SLT_PLATFORM env")
     a = ap.parse_args()
     configure_platform(a.platform)
     serve(a.host, a.port)

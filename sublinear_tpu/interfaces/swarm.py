@@ -20,7 +20,7 @@ The reference talks to an external SaaS; here the swarm is self-hosted:
 * ``python -m sublinear_tpu.interfaces.swarm --connect ws://...`` runs a
   standalone worker process (the two-process e2e path).
 
-For a TPU deployment this is the *control plane*; the data plane
+For an accelerator deployment this is the *control plane*; the data plane
 (collective compute) is `parallel/` — SURVEY.md §2.7 maps Flow-Nexus cost
 propagation to multi-host collective updates.
 """

@@ -24,16 +24,26 @@ import itertools
 
 _UID = itertools.count()
 
+# device operator kinds a caller may force with ``prefer`` (None = automatic)
+OPERATOR_KINDS = (None, "dense", "ell", "dia")
+
 
 class Matrix:
     """Square-or-rectangular sparse/dense matrix with device-operator cache."""
 
     def __init__(self, csr: CSR, prefer: Optional[str] = None):
+        if prefer not in OPERATOR_KINDS:
+            from .errors import InvalidParametersError
+
+            raise InvalidParametersError(
+                f"unknown operator kind {prefer!r}; expected one of "
+                f"{[k for k in OPERATOR_KINDS if k]} or None",
+                {"prefer": prefer},
+            )
         self.csr = csr
-        self._prefer = prefer  # None | 'dense' | 'ell' | 'dia'
+        self._prefer = prefer
         self._ops: dict = {}
         self._dia_offsets: Optional[tuple] = ()  # () = unprobed, None = ineligible
-        self._xbar_ok: Optional[bool] = None
         self._dom_gap: Optional[float] = None
         self._transpose_csr: Optional[CSR] = None
         # serving layers share Matrix objects across threads
@@ -111,10 +121,6 @@ class Matrix:
 
     # ------------------------------------------------------------ device ops
     def _use_dense(self) -> bool:
-        if self._prefer == "dense":
-            return True
-        if self._prefer == "ell":
-            return False
         n, m = self.shape
         if max(n, m) <= DENSE_THRESHOLD:
             return True
@@ -131,47 +137,23 @@ class Matrix:
             self._dia_offsets = None if offs is None else tuple(int(o) for o in offs)
         return self._dia_offsets
 
-    def _xbar_eligible(self) -> bool:
-        """Crossbar-routed SpMV eligibility: large irregular sparse matrices
-        where the XBAR kernel (ops/xbar.py) beats dense streaming and the
-        gather-based ELL path by 1-2 orders of magnitude."""
-        if self._xbar_ok is None:
-            from .ops.xbar import xbar_feasible
-
-            n, m = self.shape
-            if min(n, m) < 4096 or self.density > 0.02:
-                self._xbar_ok = False
-            else:
-                counts = np.bincount(self.csr.indices >> 7)
-                tcounts = np.bincount(self.csr.to_coo()[0] >> 7)
-                self._xbar_ok = bool(
-                    xbar_feasible(n, m, self.nnz, int(counts.max()))
-                    and xbar_feasible(m, n, self.nnz, int(tcounts.max()))
-                )
-        return self._xbar_ok
-
-    def _op_kind(self, batch: bool = False) -> str:
-        if self._prefer in ("dense", "ell", "dia", "xbar"):
+    def _op_kind(self) -> str:
+        """Operator kind for this matrix; single- and multi-RHS products
+        share it (every operator kind has both)."""
+        if self._prefer is not None:
             return self._prefer
         # DIA beats both dense and gather paths whenever it applies: the
         # matvec is D shifted streaming multiply-adds with zero gathers.
         if self._dia_eligible() is not None:
             return "dia"
-        # single-RHS large sparse: crossbar-routed gather kernel
-        if not batch and self._xbar_eligible():
-            return "xbar"
         return "dense" if self._use_dense() else "ell"
 
-    def op(self, dtype=None, transpose: bool = False, batch: bool = False):
-        """Device operator (cached per (dtype, transpose, kind)).
-
-        ``batch=True`` requests the multi-RHS product path (ELL/dense SpMM);
-        the crossbar operator is single-RHS-optimized and excluded there.
-        """
+    def op(self, dtype=None, transpose: bool = False):
+        """Device operator (cached per (dtype, transpose, kind))."""
         from .config import resolve_dtype
 
         dt = resolve_dtype(dtype)
-        kind = self._op_kind(batch=batch)
+        kind = self._op_kind()
         key = (str(dt), bool(transpose), kind)
         if key not in self._ops:
             with self._lock:
@@ -189,13 +171,6 @@ class Matrix:
                         self._ops[key] = dia_from_csr(csr, dt)
                     elif kind == "dense":
                         self._ops[key] = _ell.dense_from_csr(csr, dt)
-                    elif kind == "xbar":
-                        from .ops.xbar import xbar_from_csr
-
-                        op = xbar_from_csr(csr, dt)
-                        if op is None:  # routing infeasible: gather fallback
-                            op = _ell.ell_from_csr(csr, dt)
-                        self._ops[key] = op
                     else:
                         self._ops[key] = _ell.ell_from_csr(csr, dt)
         return self._ops[key]

@@ -5,7 +5,7 @@ Reference parity: /root/reference/neural-network-implementation/src/config.rs
 Kalman prior / solver-gate / active-selection sub-configs, validate()) and the
 shipped configs/ directory (A_traditional.yaml, B_temporal_solver.yaml).
 
-TPU notes: fields that configure host threading in the reference
+Device notes: fields that configure host threading in the reference
 (num_threads, cpu_affinity, enable_simd, pin_memory) are kept for config-file
 compatibility but are advisory here — XLA owns scheduling; "SIMD" is the
 always-on fused jitted program.

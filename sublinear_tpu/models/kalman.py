@@ -3,7 +3,7 @@
 Reference: /root/reference/neural-network-implementation/src/solvers/kalman.rs:19-279
 (predict/update/multi-horizon forecast over a linear-Gaussian state model).
 
-TPU re-design: a functional filter whose sequence pass is one ``lax.scan``
+Device re-design: a functional filter whose sequence pass is one ``lax.scan``
 (the reference steps a mutable struct per tick); batched across series via
 ``vmap``.
 """

@@ -4,8 +4,8 @@ Reference: /root/reference/neural-network-implementation/src/solvers/pagerank_se
 — build a similarity graph over training samples, run PageRank, select the
 top-scoring samples for training.
 
-TPU re-design: the kNN similarity graph is built with one batched distance
-matmul on the MXU; PageRank runs through the library's on-device power
+Device re-design: the kNN similarity graph is built with one batched distance
+matmul; PageRank runs through the library's on-device power
 iteration (graph/pagerank.py).
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ def similarity_graph(features: np.ndarray, k: int = 8, sigma: float | None = Non
     X = jnp.asarray(np.asarray(features, dtype=np.float32))
     n = X.shape[0]
     sq = jnp.sum(X * X, axis=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (X @ X.T)  # MXU distance matrix
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (X @ X.T)  # distance matrix in one matmul
     d2 = jnp.maximum(d2, 0.0)
     d2_np = np.asarray(d2, dtype=np.float64)
     np.fill_diagonal(d2_np, np.inf)

@@ -4,10 +4,10 @@ Reference semantics: `QuantizedModel` / `QuantizationScheme` {Int8, Int4,
 Binary} with scale/zero-point arrays and quantize/dequantize round-trips
 (/root/reference/neural-network-implementation/src/models/quantization.rs).
 The reference quantizes a flat f64 weight vector with one global scale; here
-the TPU-native form quantizes a whole flax parameter pytree with symmetric
+the device-native form quantizes a whole flax parameter pytree with symmetric
 per-output-channel scales (tighter error, and the layout XLA wants: int8
-weights stream from HBM at 4x the density of f32, and dequantize fuses into
-the consuming matmul — on current TPUs int8 matmuls are MXU-native).
+weights stream from device memory at 4x the density of f32, and dequantize
+fuses into the consuming matmul).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ Reference: /root/reference/neural-network-implementation/src/solvers/solver_gate
 local DD system around the predicted state) is within tolerance and the work
 budget is respected; the gate tracks pass-rate / certificate error / work.
 
-TPU re-design: the certificate solve is a fixed-iteration batched Jacobi/CG
+Device re-design: the certificate solve is a fixed-iteration batched Jacobi/CG
 program (static shapes, vmapped over a batch of predictions) so gating an
 entire batch is ONE device dispatch.
 """

@@ -6,7 +6,7 @@ Reference: /root/reference/neural-network-implementation/src/models/
 System A/B definitions; latency budget P99.9 <= 0.90ms/tick with gate <=
 0.20ms (lib.rs:63-74).
 
-TPU re-design: flax.linen modules; the sequence loop is lax.scan inside the
+Device re-design: flax.linen modules; the sequence loop is lax.scan inside the
 GRU; training steps are jitted and data-parallel over the mesh ``batch``
 axis (see trainer.py).
 """

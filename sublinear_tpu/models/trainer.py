@@ -3,7 +3,7 @@
 Reference: /root/reference/neural-network-implementation/src/training/
 (Trainer + optimizer registry mod.rs/optimizer.rs, losses.rs, callbacks.rs).
 
-TPU design: optax optimizer chain (grad-clip -> optimizer -> weight decay),
+Device design: optax optimizer chain (grad-clip -> optimizer -> weight decay),
 one jitted train_step (donated state), data parallel over the mesh ``batch``
 axis — batches are placed with a NamedSharding and GSPMD partitions the step;
 gradients reduce over the mesh automatically.  Losses come from the
@@ -215,7 +215,7 @@ def train_system_b(system, windows, targets, config, validation_data=None,
     (ActiveSelectionConfig, config.rs:162); early stopping on val loss; the
     gate pass rate is tracked per epoch.
 
-    TPU design: priors for ALL windows come from one vmapped Kalman scan;
+    Device design: priors for ALL windows come from one vmapped Kalman scan;
     per-sample errors for the selection step are one jitted batch eval —
     active selection costs two device dispatches per epoch, not a host loop.
     Returns per-epoch log dicts; ``system.params`` is updated in place."""

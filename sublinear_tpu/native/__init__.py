@@ -54,18 +54,6 @@ def get_lib():
     lib.row_positions.argtypes = [i64p, ctypes.c_int64, ctypes.c_int64, i64p]
     lib.rcm_ordering.restype = None
     lib.rcm_ordering.argtypes = [i64p, i32p, i64p, i32p, ctypes.c_int64, i64p]
-    i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
-    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-    lib.route_xbar.restype = ctypes.c_int64
-    lib.route_xbar.argtypes = [
-        i64p, i64p, f32p, ctypes.c_int64,                     # rows/cols/vals/nnz
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,       # n, C_src, P
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,       # K, Rr, Cb_pad
-        ctypes.c_int64, ctypes.c_int64,                       # Bd, Hs
-        ctypes.c_uint64, ctypes.c_int32,                      # seed, max_attempts
-        i16p, f32p, i16p, ctypes.c_int64, i16p, u8p,          # tables
-    ]
     _lib = lib
     return _lib
 
@@ -116,27 +104,6 @@ def dijkstra_multi_source(indptr, indices, data, n, sources, source_vals, bound=
         len(np.atleast_1d(sources)), float(bound), dist, srcval,
     )
     return dist, srcval
-
-
-def route_xbar(rows, cols, vals, n, C_src, P, K, Rr, Cb_pad, Bd, Hs,
-               seed, idx_src, val_src, idx2, idx3, max_attempts=64):
-    """Native greedy crossbar router (see packer.cpp route_xbar).
-
-    Fills the route tables in place; returns the placed-entry bool mask, or
-    None when the native library is unavailable (caller uses the NumPy
-    randomized-rounds router in ops/xbar.py)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    cols = np.ascontiguousarray(cols, dtype=np.int64)
-    vals = np.ascontiguousarray(vals, dtype=np.float32)
-    nnz = rows.size
-    placed = np.zeros(nnz, dtype=np.uint8)
-    lib.route_xbar(rows, cols, vals, nnz, n, C_src, P, K, Rr, Cb_pad, Bd, Hs,
-                   np.uint64(seed), np.int32(max_attempts),
-                   idx_src, val_src, idx2, idx2.shape[1], idx3, placed)
-    return placed.astype(bool)
 
 
 def rcm_ordering(indptr, indices, t_indptr, t_indices, n):

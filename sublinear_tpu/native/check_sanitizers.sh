@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Host-side C++ sanitizer check (SURVEY.md §5.2: the reference has no
-# sanitizer coverage for its unsafe native code; the TPU build adds
+# sanitizer coverage for its unsafe native code; this build adds
 # ASAN/UBSAN CI for the only native code it has — the host helpers).
 #
 # Usage: bash sublinear_tpu/native/check_sanitizers.sh

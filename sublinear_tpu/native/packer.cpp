@@ -1,11 +1,11 @@
 // Host-side native helpers: triplet->CSR packing, ELL slot assignment,
 // greedy graph coloring, and a priority-queue Dijkstra oracle.
 //
-// TPU-native replacement for the reference's host-side native layer
+// Replacement for the reference's host-side native layer
 // (/root/reference/src/matrix/sparse.rs construction paths,
 // /root/reference/src/ultra_fast.rs generate/pack helpers,
 // /root/reference/src/bmssp.rs Dijkstra).  Device compute stays in
-// JAX/XLA/Pallas; this code only accelerates irregular host-side packing
+// JAX/XLA; this code only accelerates irregular host-side packing
 // that NumPy handles poorly at scale.  Exposed via ctypes (see native.py);
 // every entry point has a pure-NumPy fallback.
 //
@@ -180,114 +180,6 @@ void rcm_ordering(
         }
     }
     for (int64_t i = 0; i < n; ++i) perm[i] = order[n - 1 - i];
-}
-
-// --- XBAR crossbar router ---------------------------------------------------
-// Greedy router for the fused crossbar SpMV (ops/xbar.py): assigns each COO
-// entry a source slot (plane p, lane ds) and a per-row dest slot k, writing
-// the four route tables directly.  Replaces the NumPy randomized-rounds
-// router (pack-time was ~2.5 s at nnz=1.1M; this runs in milliseconds).
-// Geometry/lane formulas must match ops/xbar.py:
-//   ds = ((rh & 127) + 37*k) & 127,  db = k*Cb_pad + (rh>>7),  rh = r>>7.
-// Returns the number of placed entries; placed[i]=1 for routed entries.
-
-static inline uint64_t splitmix64(uint64_t& s) {
-    uint64_t z = (s += 0x9E3779B97F4A7C15ull);
-    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
-    z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
-    return z ^ (z >> 31);
-}
-
-int64_t route_xbar(
-    const int64_t* rows, const int64_t* cols, const float* vals, int64_t nnz,
-    int64_t n, int64_t C_src, int64_t P, int64_t K, int64_t Rr,
-    int64_t Cb_pad, int64_t Bd, int64_t Hs,
-    uint64_t seed, int32_t max_attempts,
-    int16_t* idx_src,   // (Hs, 128), caller-zeroed
-    float* val_src,     // (Hs, 128), caller-zeroed
-    int16_t* idx2,      // (Hs, idx2_w), caller-filled
-    int64_t idx2_w,     // banks*128
-    int16_t* idx3,      // (Bd*128, 128), caller-filled (default Bs-1)
-    uint8_t* placed     // (nnz,) out
-) {
-    (void)Rr;
-    std::vector<uint64_t> occ1((Hs * 128 + 63) / 64, 0);
-    std::vector<uint64_t> occ2((Hs * Bd + 63) / 64, 0);
-    const int64_t kw = (K + 63) / 64;
-    std::vector<uint64_t> rowmask(n * kw, 0);
-    std::vector<int32_t> rowcount(n, 0);
-    uint64_t rng = seed ^ 0xD1B54A32D192ED03ull;
-
-    auto claim = [&](int64_t i, int64_t r, int64_t p, int64_t k,
-                     int64_t h, int64_t lo, int64_t dsr, int64_t jc,
-                     int64_t rl, uint64_t* rm) {
-        const int64_t ds = (dsr + 37 * k) & 127;
-        const int64_t db = k * Cb_pad + jc;
-        const int64_t srow = p * C_src + h;
-        const int64_t b1 = srow * 128 + ds;
-        if (occ1[b1 >> 6] & (1ull << (b1 & 63))) return false;
-        const int64_t sb = srow >> 7;
-        const int64_t b2 = (sb * 128 + ds) * Bd + db;
-        if (occ2[b2 >> 6] & (1ull << (b2 & 63))) return false;
-        occ1[b1 >> 6] |= 1ull << (b1 & 63);
-        occ2[b2 >> 6] |= 1ull << (b2 & 63);
-        rm[k >> 6] |= 1ull << (k & 63);
-        rowcount[r] += 1;
-        idx_src[srow * 128 + ds] = (int16_t)lo;
-        val_src[srow * 128 + ds] = vals[i];
-        idx2[(sb * 128 + ds) * idx2_w + db] = (int16_t)(srow & 127);
-        idx3[(db * 128 + dsr) * 128 + rl] = (int16_t)sb;
-        placed[i] = 1;
-        return true;
-    };
-
-    int64_t n_placed = 0;
-    std::vector<int64_t> deferred;
-    for (int64_t i = 0; i < nnz; ++i) {
-        placed[i] = 0;
-        const int64_t r = rows[i], c = cols[i];
-        if (rowcount[r] >= (int32_t)K) continue;  // row slots exhausted
-        const int64_t h = c >> 7;
-        const int64_t lo = c & 127;
-        const int64_t rh = r >> 7;
-        const int64_t dsr = rh & 127;
-        const int64_t jc = rh >> 7;
-        const int64_t rl = r & 127;
-        uint64_t* rm = rowmask.data() + r * kw;
-        bool ok = false;
-        for (int32_t a = 0; a < max_attempts && !ok; ++a) {
-            const uint64_t rnd = splitmix64(rng);
-            const int64_t k = (int64_t)(rnd % (uint64_t)K);
-            if (rm[k >> 6] & (1ull << (k & 63))) continue;
-            const int64_t p = (int64_t)((rnd >> 32) % (uint64_t)P);
-            ok = claim(i, r, p, k, h, lo, dsr, jc, rl, rm);
-        }
-        if (ok) ++n_placed; else deferred.push_back(i);
-    }
-    // Systematic second pass: random attempts leave a ~0.1% conflict tail
-    // that costs real time downstream (the COO fallback is ~15 ns/entry on
-    // TPU).  Exhaustively scan every free (k, p) cell for each leftover —
-    // O(P*K) per entry over a tiny set, and it empties the tail of
-    // everything except rows with degree > K.
-    for (int64_t i : deferred) {
-        const int64_t r = rows[i], c = cols[i];
-        if (rowcount[r] >= (int32_t)K) continue;
-        const int64_t h = c >> 7;
-        const int64_t lo = c & 127;
-        const int64_t rh = r >> 7;
-        const int64_t dsr = rh & 127;
-        const int64_t jc = rh >> 7;
-        const int64_t rl = r & 127;
-        uint64_t* rm = rowmask.data() + r * kw;
-        bool ok = false;
-        for (int64_t k = 0; k < K && !ok; ++k) {
-            if (rm[k >> 6] & (1ull << (k & 63))) continue;
-            for (int64_t p = 0; p < P && !ok; ++p)
-                ok = claim(i, r, p, k, h, lo, dsr, jc, rl, rm);
-        }
-        if (ok) ++n_placed;
-    }
-    return n_placed;
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Compensated (Kahan/Neumaier) reductions.
 
-Parity-plus: the reference accumulates in f64 natively; on TPU (f32 compute)
+Parity-plus: the reference accumulates in f64 natively; on the device (f32 compute)
 compensated summation recovers most of the lost accumulation accuracy for
 long reductions — used where a single dot product's rounding matters (e.g.
 residual certification of very large systems).

@@ -1,4 +1,4 @@
-"""Sparse matrix-vector / matrix-matrix product kernels (TPU-first).
+"""Sparse matrix-vector / matrix-matrix products.
 
 This is the universal hot kernel of the whole framework: every solver's inner
 loop reduces to it (reference hot kernels: CSR matvec at
@@ -7,16 +7,16 @@ loop reduces to it (reference hot kernels: CSR matvec at
 /root/reference/src/simd_ops.rs:20-91, and the TS CSR matvec at
 /root/reference/src/mcp/tools/solver-optimized.ts:50-67).
 
-TPU re-design (not a translation):
-  * slot-major ELL: ``values``/``cols`` of shape (K, n_pad) with the row axis
-    on the 128-lane minor dimension.  One SpMV = K full-width vector gathers
-    ``x[cols[k]]`` + fused multiply-accumulate on the VPU — no scalar loops,
-    no data-dependent shapes, fully fusable by XLA.
+Device design (plain XLA, no hand-written kernel):
+  * slot-major ELL: ``values``/``cols`` of shape (K, n_pad).  One SpMV = K
+    vector gathers ``x[cols[k]]`` + a fused multiply-accumulate over slots —
+    no scalar loops, no data-dependent shapes, fully fusable by XLA.  On a
+    GPU each gathered index costs one cache sector; x stays L2-resident up
+    to a few million rows.
   * COO tail for hub rows (power-law degree): entries beyond the ELL slot cap
     go to a flat COO block reduced with ``segment_sum`` (sorted rows).
-  * dense path: small/dense operators use the MXU via ``jnp.dot``; on TPU a
-    dense n x n f32 matvec is HBM-bandwidth-bound and beats any gather-based
-    path below a few thousand rows.
+  * dense path: small/dense operators use ``jnp.dot``, which streams the
+    n x n matrix once per matvec at memory bandwidth.
 
 All functions operate in the *padded* domain: vectors have length
 n_pad = round_up(n, 128) with zero padding; padded ELL slots point at column 0
@@ -28,9 +28,9 @@ import jax
 import jax.numpy as jnp
 
 
-# All contractions use HIGHEST precision: on TPU the default f32 matmul
-# runs single-pass bf16 on the MXU (~3e-3 relative error), which stalls
-# solver residuals around 1e-1 absolute — measured, not hypothetical.
+# All contractions use HIGHEST precision: true f32 products.  XLA:GPU may
+# otherwise run f32 dots in TF32 (10-bit mantissa, ~1e-3 relative error),
+# which stalls solver residuals far above the 1e-6 tolerances served here.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -41,37 +41,11 @@ def ell_matvec(values: jax.Array, cols: jax.Array, x: jax.Array) -> jax.Array:
     return jnp.einsum("kn,kn->n", values, gathered, precision=_PREC)
 
 
-# The TPU gather engine costs ~16 ns per index for single-float payloads but
-# only ~5 ns per index when each index fetches a row of >= 8 floats (measured,
-# see ARCHITECTURE.md).  For large gather volumes we therefore embed x as
-# column 0 of an 8-wide container and gather rows; the 7 auxiliary columns
-# carry operator-resident junk weighted by 1e-30 so XLA cannot slice the
-# gather back down to one column.
-WIDE_GATHER_THRESHOLD = 1 << 17  # gather count above which the wide path wins
-
-
-def ell_matvec_wide(values: jax.Array, cols: jax.Array, x: jax.Array, aux: jax.Array) -> jax.Array:
-    """Single-RHS SpMV through an 8-wide row-gather container (~3.6x faster
-    than the narrow gather at large nnz)."""
-    X = jnp.concatenate([x[:, None], aux], axis=1)      # (m_pad, 8)
-    gathered = jnp.take(X, cols, axis=0)                # (K, n_pad, 8)
-    w = jnp.concatenate(
-        [jnp.ones((1,), x.dtype), jnp.full((aux.shape[1],), 1e-30, x.dtype)]
-    )
-    return jnp.einsum("kns,s,kn->n", gathered, w, values, precision=_PREC)
-
-
 def ell_matmat(values: jax.Array, cols: jax.Array, X: jax.Array) -> jax.Array:
     """Y = A @ X for batched RHS.  X: (m_pad, B) -> (n_pad, B).
 
     Replaces the reference's sequential batch solve loop
     (/root/reference/src/mcp/tools/solver.ts:291-321) with one fused product.
-
-    take+einsum measured BEST on device among five formulations (einsum
-    5.48, slot-scan 8.35, grouped scans 6.2-6.6, add-tree 6.56 ms/SpMM at
-    n=100k/K=27/B=128, device-span timed — scratch/prof_r5_spmm3.py): XLA's
-    materialized gather feeds a well-pipelined reduce, while running-
-    accumulator forms pay the (n,B) accumulator round-trip per slot.
     """
     gathered = jnp.take(X, cols, axis=0)  # (K, n_pad, B)
     return jnp.einsum("kn,knb->nb", values, gathered, precision=_PREC)
@@ -80,11 +54,8 @@ def ell_matmat(values: jax.Array, cols: jax.Array, X: jax.Array) -> jax.Array:
 def ell_matmat_bmajor(values: jax.Array, cols: jax.Array, XT: jax.Array) -> jax.Array:
     """YT = (A @ X)^T for batch-major RHS.  XT: (B, m_pad) -> (B, n_pad).
 
-    The batch-major layout gathers along LANES (XT[:, col]) instead of rows:
-    measured 3.03 vs 3.97 ms/SpMM at n=100k/K=12/B=128 (24% — the gather
-    engine moves lane-direction elements faster than 512-byte row DMAs;
-    scratch/prof_r5_spmm4.py).  The batched Neumann/CG drivers keep ALL
-    iteration state in this layout; only solve entry/exit transposes."""
+    The batched Neumann driver keeps ALL iteration state in this layout;
+    only solve entry/exit transposes."""
     g = jnp.take(XT, cols, axis=1)        # (B, K, n_pad)
     return jnp.einsum("kn,bkn->bn", values, g, precision=_PREC)
 

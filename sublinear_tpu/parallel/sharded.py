@@ -1,6 +1,6 @@
 """Distributed solvers: row-partitioned SpMV over a device mesh.
 
-The TPU-native replacement for the reference's single-node scale story
+The device-mesh replacement for the reference's single-node scale story
 (SURVEY.md §2.7, §5.8): A's rows are partitioned across the ``rows`` mesh
 axis, batched RHS across ``batch``.  Two execution modes:
 
@@ -11,7 +11,8 @@ axis, batched RHS across ``batch``.  Two execution modes:
   2. ``explicit`` (shard_map): a hand-scheduled CG where the search direction
      is re-replicated with one ``all_gather`` per iteration (the halo
      exchange) and dot products are ``psum``-reduced over shards — the
-     scheme SURVEY.md §5.7/§5.8 calls for, with collectives riding ICI.
+     scheme SURVEY.md §5.7/§5.8 calls for; XLA hands the collectives to
+     NCCL, over NVLink between the cards of one host.
 """
 from __future__ import annotations
 
@@ -86,12 +87,10 @@ class SplitShardedOperator:
     The local/remote split makes the p all_gather overlappable with the
     communication-free local SpMV (SURVEY.md §5.7/§5.8; the reference's rayon
     row-chunk parallel matvec /root/reference/src/matrix/optimized.rs:397-449
-    has no equivalent overlap structure).  Round-5 finding from the real
-    4-chip v5e AOT lowering (tests/test_tpu_aot_async.py): this XLA version
-    marks the all-gather asyncifiable (async_collective_name attribute +
-    CUSTOM barrier continuation) rather than splitting start/done pairs in
-    HLO, so the overlap is a backend/runtime mechanism — the structural
-    independence this split provides is what enables it.
+    has no equivalent overlap structure).  Whether the backend actually
+    overlaps the gather with the local product is a scheduling decision
+    of XLA; the structural independence this split provides is what
+    enables it.
     """
 
     def __init__(self, vals_loc, cols_loc, vals_rem, cols_rem, tail_vals,
@@ -206,132 +205,6 @@ def shard_operator_split(matrix: Matrix, mesh: Mesh, dtype=None) -> SplitSharded
     )
 
 
-class XbarShardedOperator:
-    """SplitShardedOperator variant whose LOCAL block runs the flagship
-    crossbar kernel per chip (VERDICT r4 #4: the two best parts of the
-    codebase now meet).  Per-shard xbar packs with a UNIFORM geometry are
-    stacked into sharded table operands; the remote block + hub tail keep
-    the split-ELL scheme, so the collective pattern (one all_gather per
-    matvec, psum dots) is IDENTICAL to the split-ELL solver — asserted by
-    tests/test_hlo_collectives.py.
-
-    Reference analog (single-node rayon row chunks):
-    /root/reference/src/matrix/optimized.rs:397-449."""
-
-    def __init__(self, base_op: SplitShardedOperator, tabs, geom):
-        self.base = base_op
-        self.idx_src, self.val_src, self.idx2, self.idx3 = tabs
-        self.geom = geom                 # dict of uniform xbar geometry
-
-    @property
-    def dtype(self):
-        return self.base.dtype
-
-
-def _pack_xbar_shards(matrix: Matrix, mesh: Mesh, dt):
-    """Pack each shard's LOCAL block with the crossbar router under ONE
-    shared geometry; returns (stacked tables, geometry) or None if any
-    shard cannot be packed tail-free at the shared geometry."""
-    import os
-    from ..ops import xbar as _xbar
-
-    D = int(mesh.shape[ROWS])
-    csr = matrix.csr
-    n, m = csr.shape
-    n_pad = round_up(max(n, 1), LANE * D)
-    S = n_pad // D
-    if S % _xbar.GRID_ROWS:
-        return None  # per-shard row space must tile the routing grid
-
-    rows = csr.row_of_entry().astype(np.int64)
-    cols = csr.indices.astype(np.int64)
-    owner = rows // S
-    is_loc = (cols // S) == owner
-
-    shard_coo = []
-    for d in range(D):
-        sel = is_loc & (owner == d)
-        shard_coo.append((rows[sel] - d * S, cols[sel] - d * S,
-                          csr.data[sel]))
-
-    # first pass with default geometry to find the max (P, K) over shards
-    packs = [_xbar.pack_xbar(r, c, v, (S, S)) for r, c, v in shard_coo]
-    if any(p is None for p in packs):
-        return None
-    P_max = max(p.P for p in packs)
-    K_max = max(p.K for p in packs)
-    if any(p.P != P_max or p.K != K_max for p in packs):
-        # repack outliers at the shared geometry via the env override
-        saved = {k: os.environ.get(k) for k in ("SLT_XBAR_P", "SLT_XBAR_K")}
-        os.environ["SLT_XBAR_P"] = str(P_max)
-        os.environ["SLT_XBAR_K"] = str(K_max)
-        try:
-            packs = [_xbar.pack_xbar(r, c, v, (S, S)) for r, c, v in shard_coo]
-        finally:
-            for k, v in saved.items():
-                os.environ.pop(k, None)
-                if v is not None:
-                    os.environ[k] = v
-        if any(p is None for p in packs):
-            return None
-    g0 = packs[0]
-    for p in packs:
-        if (p.Bs, p.Bd, p.banks, p.C_src, p.Cb_pad, p.cb_s) != \
-                (g0.Bs, g0.Bd, g0.banks, g0.C_src, g0.Cb_pad, g0.cb_s):
-            return None
-        if p.tail_nnz or not p.chain_ready:
-            return None  # local xbar path requires clean diag-split packs
-
-    tab_sh = NamedSharding(mesh, P(ROWS))
-    stack = lambda name: jax.device_put(
-        jnp.stack([getattr(p, name) for p in packs]), tab_sh)
-    tabs = (stack("idx_src"), stack("val_src"), stack("idx2"),
-            stack("idx3"))
-    geom = dict(C_src=g0.C_src, cb_s=g0.cb_s, Bs=g0.Bs, Bd=g0.Bd,
-                banks=g0.banks, Cb_pad=g0.Cb_pad, S=S)
-    return tabs, geom
-
-
-def shard_operator_xbar(matrix: Matrix, mesh: Mesh, dtype=None):
-    """SplitShardedOperator + per-shard crossbar local block, or None when
-    the shards cannot be packed uniformly (caller falls back to split-ELL)."""
-    from ..config import resolve_dtype
-
-    dt = resolve_dtype(dtype)
-    packed = _pack_xbar_shards(matrix, mesh, dt)
-    if packed is None:
-        return None
-    base_op = shard_operator_split(matrix, mesh, dtype)
-    # the split tail absorbs LOCAL hub overflow too, but the xbar pack
-    # routes the ENTIRE local block — zero local tail values so they are
-    # not double-counted (padding structure preserved)
-    D = base_op.shards
-    S = base_op.n_pad // D
-    T = base_op.tail_per_shard
-    tv = np.array(jax.device_get(base_op.tail_vals))
-    tc = np.asarray(jax.device_get(base_op.tail_cols))
-    own = np.repeat(np.arange(D), T)
-    tv[(tc // S) == own] = 0.0
-    base_op.tail_vals = jax.device_put(
-        jnp.asarray(tv, base_op.dtype),
-        NamedSharding(mesh, P(ROWS)))
-    return XbarShardedOperator(base_op, *packed)
-
-
-def _xbar_local_matvec(tabs_l, geom, diag_l, p_l):
-    """Per-shard local-block product through the fused crossbar kernel.
-    tabs_l arrive inside shard_map with a leading length-1 shard axis."""
-    from ..ops import xbar as _xbar
-
-    is_, vs_, i2_, i3_ = (t.reshape(t.shape[1:]) for t in tabs_l)
-    x2d = p_l.astype(jnp.float32).reshape(geom["C_src"], 128)
-    y2d = _xbar._fused_call(geom["C_src"], geom["Bs"], geom["Bd"],
-                            geom["banks"], geom["cb_s"], geom["Cb_pad"])(
-        x2d, is_, vs_, i2_, i3_)
-    y = y2d.reshape(-1)[:geom["S"]].astype(p_l.dtype)
-    return y + diag_l * p_l
-
-
 def _split_matvec(vals_loc, cols_loc, vals_rem, cols_rem, tv, tr, tc, p_l):
     """Per-shard SpMV: communication-free local block first, then the remote
     block + tail over the gathered vector.  The all_gather's only consumer is
@@ -406,76 +279,40 @@ def _explicit_cg_factory(mesh: Mesh):
     return jax.jit(cg_shard)
 
 
-def _explicit_cg_xbar_factory(mesh: Mesh, geom: dict):
-    """_explicit_cg_factory with the LOCAL block routed through the fused
-    crossbar kernel per shard (XbarShardedOperator).  Collective pattern is
-    identical: ONE all_gather per matvec (consumed only by the remote
-    block + tail, so it still overlaps the local product) and psum dots."""
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(
-            P(ROWS), P(ROWS), P(ROWS), P(ROWS),      # xbar tables (stacked)
-            P(None, ROWS), P(None, ROWS),            # remote ELL block
-            P(ROWS), P(ROWS), P(ROWS),               # tail vals/rows/cols
-            P(ROWS), P(ROWS), P(ROWS), P(ROWS),      # diag, inv_diag, b, x0
-            P(), P(),                                # threshold, max_iters
-        ),
-        out_specs=(P(ROWS), P(), P()),
-        check_vma=False,
-    )
-    def cg_shard(is_, vs_, i2_, i3_, vr, cr, tv, tr, tc, diag_l, invd_l,
-                 b_l, x0_l, threshold, max_iters):
-        from ..ops import spmv
-
-        S = b_l.shape[0]
-
-        def matvec(p_l):
-            p_full = jax.lax.all_gather(p_l, ROWS, tiled=True)
-            y_l = _xbar_local_matvec((is_, vs_, i2_, i3_), geom, diag_l, p_l)
-            y_l = y_l + spmv.ell_matvec(vr, cr, p_full)
-            y_l = y_l + spmv.coo_matvec(tv, tr, tc, p_full, S)
-            return y_l
-
-        def pdot(a, b):
-            return jax.lax.psum(jnp.vdot(a, b), ROWS)
-
-        r_l = b_l - matvec(x0_l)
-        z_l = invd_l * r_l
-        p_l = z_l
-        rz0 = pdot(r_l, z_l)
-        res0 = jnp.sqrt(pdot(r_l, r_l))
-
-        def cond(carry):
-            x_l, r_l, p_l, rz, k, res = carry
-            return (res > threshold) & (k < max_iters) & jnp.isfinite(res) & (res < base.HUGE_RES)
-
-        def body(carry):
-            x_l, r_l, p_l, rz, k, _ = carry
-            Ap_l = matvec(p_l)
-            pAp = pdot(p_l, Ap_l)
-            alpha = rz / jnp.maximum(pAp, 1e-30)
-            x_l = x_l + alpha * p_l
-            r_l = r_l - alpha * Ap_l
-            z_l = invd_l * r_l
-            rz_new = pdot(r_l, z_l)
-            beta = rz_new / jnp.maximum(rz, 1e-30)
-            p_l = z_l + beta * p_l
-            res = jnp.sqrt(pdot(r_l, r_l))
-            return x_l, r_l, p_l, rz_new, k + 1, res
-
-        carry0 = (x0_l, r_l, p_l, rz0, jnp.int32(0), res0)
-        x_l, r_l, p_l, rz, k, res = jax.lax.while_loop(cond, body, carry0)
-        return x_l, k, res
-
-    return jax.jit(cg_shard)
-
-
 from ..utils.lru import LRUCache
 
 # keyed by mesh signature (not matrix): a handful of program factories
 _EXPLICIT_CACHE = LRUCache(maxsize=8)
+
+
+def _check_mode(mode: str, allowed: tuple) -> None:
+    if mode not in allowed:
+        from ..errors import InvalidParametersError
+
+        raise InvalidParametersError(
+            f"unknown sharded mode {mode!r}; expected one of {list(allowed)}",
+            {"mode": mode},
+        )
+
+
+def lower_explicit_cg_text(matrix: Matrix, b, mesh: Optional[Mesh] = None,
+                           options: Optional[SolverOptions] = None) -> str:
+    """Optimized-HLO text of the compiled explicit CG — lets callers assert
+    its collectives (parallel/hlo.py): one all-gather per iteration."""
+    options = options or SolverOptions()
+    mesh = mesh or mesh_mod.make_mesh()
+    op = shard_operator_split(matrix, mesh, options.dtype)
+    vec_sh = NamedSharding(mesh, P(ROWS))
+    b_local = jax.device_put(
+        _ell.pad_vector(np.asarray(b, np.float64), op.n_pad, op.dtype), vec_sh)
+    x0 = jax.device_put(jnp.zeros(op.n_pad, op.dtype), vec_sh)
+    lowered = _explicit_cg_factory(mesh).lower(
+        op.vals_loc, op.cols_loc, op.vals_rem, op.cols_rem,
+        op.tail_vals, op.tail_rows, op.tail_cols,
+        op.inv_diag, b_local, x0,
+        jnp.asarray(base.threshold_for(b, options), op.dtype),
+        jnp.int32(options.max_iterations))
+    return lowered.compile().as_text()
 
 
 def solve_cg_sharded(
@@ -488,11 +325,10 @@ def solve_cg_sharded(
 ) -> SolverResult:
     """Distributed (preconditioned) CG over a row-partitioned operator.
 
-    ``mode``: 'auto' (GSPMD placement, XLA partitions the standard solver),
-    'explicit' (hand-scheduled shard_map with split local/remote blocks),
-    or 'explicit-xbar' (explicit schedule with the per-shard LOCAL product
-    routed through the crossbar kernel — falls back to 'explicit' when the
-    shards cannot be packed uniformly)."""
+    ``mode``: 'auto' (GSPMD placement, XLA partitions the standard solver)
+    or 'explicit' (hand-scheduled shard_map with split local/remote
+    blocks)."""
+    _check_mode(mode, ("auto", "explicit"))
     options = options or SolverOptions()
     mesh = mesh or mesh_mod.make_mesh()
     n = matrix.shape[0]
@@ -512,14 +348,7 @@ def solve_cg_sharded(
             x, k, res, _ = _cg_run(op, b_local, x0, threshold, jnp.int32(options.max_iterations), True)
             jax.block_until_ready(x)
     else:
-        # explicit shard_map path; with mode="explicit-xbar" the per-shard
-        # LOCAL product runs the crossbar kernel (falls back to split-ELL
-        # when the shards cannot be packed uniformly)
-        xop = None
-        if mode == "explicit-xbar":
-            xop = shard_operator_xbar(matrix, mesh, options.dtype)
-        op = xop.base if xop is not None else \
-            shard_operator_split(matrix, mesh, options.dtype)
+        op = shard_operator_split(matrix, mesh, options.dtype)
         vec_sh = NamedSharding(mesh, P(ROWS))
         b_full = _ell.pad_vector(np.asarray(b, dtype=np.float64), op.n_pad, op.dtype)
         b_local = jax.device_put(b_full, vec_sh)
@@ -527,37 +356,18 @@ def solve_cg_sharded(
             np.asarray(options.x0, dtype=np.float64), (0, op.n_pad - n)
         )
         x0 = jax.device_put(jnp.asarray(x0_np, op.dtype), vec_sh)
-        if xop is not None:
-            key = (tuple(mesh.shape.items()),
-                   tuple(d.id for d in mesh.devices.flat), "cg-xbar",
-                   tuple(sorted(xop.geom.items())))
-            fn = _EXPLICIT_CACHE.get(key)
-            if fn is None:
-                fn = _EXPLICIT_CACHE.put(
-                    key, _explicit_cg_xbar_factory(mesh, xop.geom))
-            with base.SolveTimer() as t:
-                x, k, res = fn(
-                    xop.idx_src, xop.val_src, xop.idx2, xop.idx3,
-                    op.vals_rem, op.cols_rem,
-                    op.tail_vals, op.tail_rows, op.tail_cols,
-                    op.diag, op.inv_diag, b_local, x0,
-                    jnp.asarray(threshold, op.dtype),
-                    jnp.int32(options.max_iterations),
-                )
-                jax.block_until_ready(x)
-        else:
-            key = (tuple(mesh.shape.items()), tuple(d.id for d in mesh.devices.flat), "cg")
-            fn = _EXPLICIT_CACHE.get(key)
-            if fn is None:
-                fn = _EXPLICIT_CACHE.put(key, _explicit_cg_factory(mesh))
-            with base.SolveTimer() as t:
-                x, k, res = fn(
-                    op.vals_loc, op.cols_loc, op.vals_rem, op.cols_rem,
-                    op.tail_vals, op.tail_rows, op.tail_cols,
-                    op.inv_diag, b_local, x0,
-                    jnp.asarray(threshold, op.dtype), jnp.int32(options.max_iterations),
-                )
-                jax.block_until_ready(x)
+        key = (tuple(mesh.shape.items()), tuple(d.id for d in mesh.devices.flat), "cg")
+        fn = _EXPLICIT_CACHE.get(key)
+        if fn is None:
+            fn = _EXPLICIT_CACHE.put(key, _explicit_cg_factory(mesh))
+        with base.SolveTimer() as t:
+            x, k, res = fn(
+                op.vals_loc, op.cols_loc, op.vals_rem, op.cols_rem,
+                op.tail_vals, op.tail_rows, op.tail_cols,
+                op.inv_diag, b_local, x0,
+                jnp.asarray(threshold, op.dtype), jnp.int32(options.max_iterations),
+            )
+            jax.block_until_ready(x)
 
     result = base.finalize(
         matrix, x, k, res, f"cg-sharded-{mode}", options, t.ms,
@@ -635,75 +445,6 @@ def _explicit_neumann_factory(mesh: Mesh):
     return jax.jit(neumann_shard)
 
 
-def _explicit_neumann_xbar_factory(mesh: Mesh, geom: dict):
-    """_explicit_neumann_factory with the LOCAL block routed through the
-    crossbar kernel per shard (same composition as _explicit_cg_xbar_factory;
-    collective pattern unchanged: one all_gather per matvec + psum norms)."""
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(
-            P(ROWS), P(ROWS), P(ROWS), P(ROWS),      # xbar tables (stacked)
-            P(None, ROWS), P(None, ROWS),            # remote ELL block
-            P(ROWS), P(ROWS), P(ROWS),               # tail vals/rows/cols
-            P(ROWS), P(ROWS),                        # diag, inv_diag
-            P(ROWS), P(ROWS),                        # b_local, x0_local
-            P(), P(), P(),                           # threshold, max_iters, check_every
-        ),
-        out_specs=(P(ROWS), P(), P()),
-        check_vma=False,
-    )
-    def neumann_shard(is_, vs_, i2_, i3_, vr, cr, tv, tr, tc, diag_l, invd_l,
-                      b_l, x0_l, threshold, max_iters, check_every):
-        from ..ops import spmv
-
-        S = b_l.shape[0]
-
-        def matvec(v_l):
-            p_full = jax.lax.all_gather(v_l, ROWS, tiled=True)
-            y_l = _xbar_local_matvec((is_, vs_, i2_, i3_), geom, diag_l, v_l)
-            y_l = y_l + spmv.ell_matvec(vr, cr, p_full)
-            y_l = y_l + spmv.coo_matvec(tv, tr, tc, p_full, S)
-            return y_l
-
-        def pnorm(v_l):
-            return jnp.sqrt(jax.lax.psum(jnp.vdot(v_l, v_l), ROWS))
-
-        r0_l = b_l - matvec(x0_l)
-        term0_l = invd_l * r0_l
-        x_l = x0_l + term0_l
-
-        def cond(carry):
-            x_l, term_l, k, res = carry
-            return (res > threshold) & (k < max_iters) & jnp.isfinite(res) & (res < base.HUGE_RES)
-
-        def body(carry):
-            x_l, term_l, k, _ = carry
-
-            def inner(i, st):
-                x_l, term_l, _ = st
-                at_l = matvec(term_l) - diag_l * term_l
-                term_l = -invd_l * at_l
-                return x_l + term_l, term_l, at_l
-
-            x_l, term_l, at_l = jax.lax.fori_loop(
-                0, check_every, inner, (x_l, term_l, jnp.zeros_like(term_l)))
-            # Neumann residual identity: at_l = R_off t_last is the EXACT
-            # residual (negated) of the PREVIOUS iterate — a strict upper
-            # bound for the current x_l, no extra matvec
-            res = pnorm(at_l)
-            return x_l, term_l, k + check_every, res
-
-        res0 = pnorm(matvec(x_l) - b_l)
-        x_l, term_l, k, res = jax.lax.while_loop(
-            cond, body, (x_l, term0_l, jnp.int32(0), res0)
-        )
-        return x_l, k, res
-
-    return jax.jit(neumann_shard)
-
-
 def solve_neumann_sharded(
     matrix: Matrix,
     b,
@@ -712,18 +453,13 @@ def solve_neumann_sharded(
     raise_on_fail: bool = True,
     mode: str = "explicit",
 ) -> SolverResult:
-    """Distributed Neumann series over a row-partitioned operator.
-
-    ``mode="explicit-xbar"`` routes the per-shard LOCAL product through the
-    crossbar kernel (falls back to split-ELL when shards cannot be packed
-    uniformly)."""
+    """Distributed Neumann series over a row-partitioned operator
+    (``mode="explicit"``: the shard_map schedule with split local/remote
+    blocks)."""
+    _check_mode(mode, ("explicit",))
     options = options or SolverOptions()
     mesh = mesh or mesh_mod.make_mesh()
-    xop = None
-    if mode == "explicit-xbar":
-        xop = shard_operator_xbar(matrix, mesh, options.dtype)
-    op = xop.base if xop is not None else \
-        shard_operator_split(matrix, mesh, options.dtype)
+    op = shard_operator_split(matrix, mesh, options.dtype)
     n = matrix.shape[0]
     vec_sh = NamedSharding(mesh, P(ROWS))
     b_full = _ell.pad_vector(np.asarray(b, dtype=np.float64), op.n_pad, op.dtype)
@@ -734,36 +470,18 @@ def solve_neumann_sharded(
     x0 = jax.device_put(jnp.asarray(x0_np, op.dtype), vec_sh)
     threshold = base.threshold_for(b, options)
 
+    key = (tuple(mesh.shape.items()), tuple(d.id for d in mesh.devices.flat), "neumann")
+    fn = _EXPLICIT_CACHE.get(key)
+    if fn is None:
+        fn = _EXPLICIT_CACHE.put(key, _explicit_neumann_factory(mesh))
     with base.SolveTimer() as t:
-        if xop is not None:
-            key = (tuple(mesh.shape.items()),
-                   tuple(d.id for d in mesh.devices.flat), "neumann-xbar",
-                   tuple(sorted(xop.geom.items())))
-            fn = _EXPLICIT_CACHE.get(key)
-            if fn is None:
-                fn = _EXPLICIT_CACHE.put(
-                    key, _explicit_neumann_xbar_factory(mesh, xop.geom))
-            x, k, res = fn(
-                xop.idx_src, xop.val_src, xop.idx2, xop.idx3,
-                op.vals_rem, op.cols_rem,
-                op.tail_vals, op.tail_rows, op.tail_cols,
-                op.diag, op.inv_diag, b_local, x0,
-                jnp.asarray(threshold, op.dtype),
-                jnp.int32(options.max_iterations),
-                jnp.int32(options.check_every),
-            )
-        else:
-            key = (tuple(mesh.shape.items()), tuple(d.id for d in mesh.devices.flat), "neumann")
-            fn = _EXPLICIT_CACHE.get(key)
-            if fn is None:
-                fn = _EXPLICIT_CACHE.put(key, _explicit_neumann_factory(mesh))
-            x, k, res = fn(
-                op.vals_loc, op.cols_loc, op.vals_rem, op.cols_rem,
-                op.tail_vals, op.tail_rows, op.tail_cols,
-                op.diag, op.inv_diag, b_local, x0,
-                jnp.asarray(threshold, op.dtype), jnp.int32(options.max_iterations),
-                jnp.int32(options.check_every),
-            )
+        x, k, res = fn(
+            op.vals_loc, op.cols_loc, op.vals_rem, op.cols_rem,
+            op.tail_vals, op.tail_rows, op.tail_cols,
+            op.diag, op.inv_diag, b_local, x0,
+            jnp.asarray(threshold, op.dtype), jnp.int32(options.max_iterations),
+            jnp.int32(options.check_every),
+        )
         jax.block_until_ready(x)
     result = base.finalize(
         matrix, x, k, res, "neumann-sharded", options, t.ms,
@@ -826,12 +544,11 @@ def _neumann_batch_run(op, B, X0, thresholds, max_iters, x0_zero: bool = False):
     thresholds — the DD-convergent batch driver for asymmetric systems where
     plain CG has no guarantee.
 
-    Round-5 rebuild (three measured wins, scratch/prof_r5_spmm4.py):
-      - ALL iteration state rides batch-major (B, n) so the hot SpMM gathers
-        along lanes (24% faster than row gathers);
+    Structure:
+      - ALL iteration state rides batch-major (B, n), so the hot SpMM
+        gathers whole x columns per index (``ell_matmat_bmajor``);
       - the Neumann residual identity r(X_k) = -R_off T_k makes the per-
-        iteration convergence check FREE (round 4 paid a second full matmat
-        for it);
+        iteration convergence check FREE (no second matmat per iteration);
       - with ``x0_zero`` (static) the two startup matmats (initial residual
         + first convergence check) are skipped: A @ 0 is zero and the first
         res check is forced into the loop with an inf seed.
@@ -925,38 +642,29 @@ def solve_batch(
         raise DimensionMismatchError(f"batch RHS must be (n, k), got {B.shape}")
 
     nrhs = B.shape[1]
-    # ELL gathers charge per index with payload amortization from >=8-float
-    # rows (ARCHITECTURE.md): pad tiny batches up to 8 columns for free speed
-    from ..formats.ell import EllOperator
-
     if mesh is not None:
         op = shard_operator(matrix, mesh, options.dtype)
-        B_width = nrhs
-        B_pad = np.zeros((op.n_pad, B_width))
+        B_pad = np.zeros((op.n_pad, nrhs))
         B_pad[:n] = B
         B_dev = jax.device_put(
             jnp.asarray(B_pad, op.dtype), NamedSharding(mesh, P(None, BATCH))
         )
     else:
-        op = matrix.op(options.dtype, batch=True)
-        B_width = max(nrhs, 8) if isinstance(op, EllOperator) else nrhs
-        B_pad = np.zeros((op.n_pad, B_width))
-        B_pad[:n, :nrhs] = B
+        op = matrix.op(options.dtype)
+        B_pad = np.zeros((op.n_pad, nrhs))
+        B_pad[:n] = B
         B_dev = jnp.asarray(B_pad, op.dtype)
 
     X0 = jnp.zeros_like(B_dev)
     norms = np.linalg.norm(B, axis=0)
     # Per-column thresholds: eps * ||b_j|| for 'relative', so a column whose
     # RHS norm is 6 orders of magnitude below its neighbours still meets its
-    # OWN relative tolerance (not eps * max_j ||b_j||). Padding columns get a
-    # huge threshold so they never hold the loop open.
+    # OWN relative tolerance (not eps * max_j ||b_j||).
     if options.convergence == "relative":
         thr_cols = float(options.epsilon) * np.maximum(norms, 1e-30)
     else:
         thr_cols = np.full(nrhs, float(options.epsilon))
-    thr_pad = np.full(B_width, np.finfo(np.float64).max)
-    thr_pad[:nrhs] = thr_cols
-    thresholds = jnp.asarray(thr_pad, op.dtype)
+    thresholds = jnp.asarray(thr_cols, op.dtype)
 
     if method == "auto":
         from ..analysis import analyze
@@ -965,40 +673,8 @@ def solve_batch(
         method = "cg" if a.is_symmetric else (
             "neumann" if a.is_diagonally_dominant else "cg"
         )
-    # small-batch fast path: for few RHS the ELL batch SpMM cannot amortize
-    # its fixed per-iteration cost; nrhs serialized CHAIN-kernel solves in
-    # one program are ~4x faster at nrhs=20/n=10k (round-5 measurement, see
-    # bench.py::bench_bmssp) and each column keeps its own convergence check
-    chain_op = None
-    if method == "neumann" and mesh is None and nrhs <= 32 and options.x0 is None:
-        op1 = matrix.op(options.dtype)
-        if getattr(op1, "chain_ready", False) and options.check_every > 1:
-            chain_op = op1
-
     with base.SolveTimer() as t:
-        if chain_op is not None:
-            from ..solvers.neumann import _neumann_run
-
-            Bx = np.zeros((chain_op.m_pad, nrhs))
-            Bx[:n] = B
-            Bx_dev = jnp.asarray(Bx, chain_op.dtype)
-            thr_dev = jnp.asarray(thr_cols, chain_op.dtype)
-
-            @jax.jit
-            def run_cols(op1, Bd, thr):
-                def one(carry, i):
-                    b = Bd[:, i]
-                    x, k, res, change, _, _ = _neumann_run(
-                        op1, b, jnp.zeros_like(b), thr[i],
-                        jnp.int32(options.max_iterations),
-                        options.check_every)
-                    return carry, (x, k, res)
-                _, (Xt, ks, ress) = jax.lax.scan(
-                    one, 0, jnp.arange(nrhs))
-                return Xt.T, jnp.max(ks), ress
-
-            X, k, col_res = run_cols(chain_op, Bx_dev, thr_dev)
-        elif method == "neumann":
+        if method == "neumann":
             X, k, col_res = _neumann_batch_run(op, B_dev, X0, thresholds, jnp.int32(options.max_iterations), x0_zero=True)
         else:
             X, k, col_res = _cg_batch_run(op, B_dev, X0, thresholds, jnp.int32(options.max_iterations), True)

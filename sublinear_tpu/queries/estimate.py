@@ -9,7 +9,7 @@ Reference semantics:
   - ``predict_functional`` (/root/reference/temporal-lead-solver/src/predictor.rs:176-300):
     t^T A^-1 b via budgeted sampled forward push + backward correction.
 
-TPU re-design: entry queries are *batched by construction* — pass arrays of
+Device re-design: entry queries are *batched by construction* — pass arrays of
 rows and get all estimates from one vectorized walker batch / one
 multi-RHS adjoint push (the reference loops one coordinate at a time).
 """

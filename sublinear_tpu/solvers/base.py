@@ -2,7 +2,7 @@
 
 The reference drives every algorithm with a host-side loop
 (``SolverAlgorithm::solve`` /root/reference/src/solver/mod.rs:223-333, the TS
-loops in /root/reference/src/core/solver.ts).  TPU-first re-design: the whole
+loops in /root/reference/src/core/solver.ts).  Device-first re-design: the whole
 iteration runs on-device inside one ``lax.while_loop`` — residuals are
 measured every ``check_every`` iterations (reference's every-5 pattern,
 src/core/solver.ts:166) without any host round-trips, and the host gets back

@@ -6,7 +6,7 @@ Parity targets: the optimized CSR+CG fast path
 (/root/reference/src/optimized_solver.rs:167-350) and UltraFastCG
 (/root/reference/src/ultra_fast.rs:99-158).
 
-TPU re-design: one fused ``lax.while_loop`` — each CG step is two vector
+Device design: one fused ``lax.while_loop`` — each CG step is two vector
 dots (psum-ready for the sharded variant in parallel/), one SpMV and three
 AXPYs, all fused by XLA.  Jacobi (diagonal) preconditioning is available and
 used by default for DD systems; BiCGSTAB covers asymmetric systems where CG's
@@ -68,42 +68,6 @@ def _cg_run(op, b, x0, threshold, max_iters, precondition, mode="residual", chan
     return x, k, res, change
 
 
-@functools.partial(jax.jit, static_argnames=("check_every",))
-def _cg_chain_run(op, b, x0, threshold, max_iters, check_every):
-    """Chunked chain-kernel PCG: ``check_every`` CG iterations per Pallas
-    launch (ops/xbar.py::_cg_chain_call — VMEM-resident tables, scratch-
-    carried x/r/p, SMEM rz), with the while_loop only running the
-    convergence check between chunks.  Exact same recurrence as _cg_run
-    with Jacobi preconditioning."""
-    inv_d = op.inv_diag
-    r0 = b - op.matvec(x0)
-    z0 = inv_d * r0
-    rz0 = jnp.vdot(r0, z0)
-
-    def cond(carry):
-        x, r, p, rz, k, res = carry
-        return (res > threshold) & (k < max_iters) & jnp.isfinite(res) \
-            & (res < base.HUGE_RES)
-
-    def chunk(n_its):
-        def body(carry):
-            x, r, p, rz, k, _ = carry
-            x, r, p, rz, res2 = op.cg_chain(x, r, p, rz, n_its)
-            return x, r, p, rz, k + n_its, jnp.sqrt(res2)
-        return body
-
-    # head chunk of 2*check_every amortizes the table streaming while the
-    # solve is certainly far from converged; the tail loop uses short
-    # chunks so the fixed-block recurrence overshoots the convergence
-    # point by little (uniform chunks of 7 overshot a 15-iteration solve
-    # to 21 — scratch/prof_r5_cgchain.py)
-    head, tail = 2 * check_every, max(2, check_every // 2)
-    carry0 = (x0, r0, z0, rz0, jnp.int32(0), jnp.linalg.norm(r0))
-    carry1 = jax.lax.cond(cond(carry0), chunk(head), lambda c: c, carry0)
-    x, r, p, rz, k, res = jax.lax.while_loop(cond, chunk(tail), carry1)
-    return x, k, res
-
-
 @functools.partial(jax.jit, static_argnames=("mode",))
 def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual", change_tol=0.0):
     r0 = b - op.matvec(x0)
@@ -162,19 +126,8 @@ def solve_cg(
     matrix: Matrix, b, options: SolverOptions, raise_on_fail: bool = True, precondition: bool = True
 ) -> SolverResult:
     op, b_pad, x0, threshold = _prepare(matrix, b, options)
-    # chain-kernel path: whole check_every-iteration CG blocks as single
-    # Pallas launches (tables VMEM-resident, state carried in scratch)
-    use_chain = (getattr(op, "chain_ready", False) and precondition
-                 and base.driver_mode_of(options) == "residual"
-                 and options.check_every > 1)
     with base.SolveTimer() as t:
-        if use_chain:
-            x, k, res = _cg_chain_run(
-                op, b_pad, x0, threshold, jnp.int32(options.max_iterations),
-                options.check_every)
-            change = jnp.asarray(jnp.inf, b_pad.dtype)
-        else:
-            x, k, res, change = _cg_run(op, b_pad, x0, threshold, jnp.int32(options.max_iterations), precondition, base.driver_mode_of(options), options.epsilon)
+        x, k, res, change = _cg_run(op, b_pad, x0, threshold, jnp.int32(options.max_iterations), precondition, base.driver_mode_of(options), options.epsilon)
         jax.block_until_ready(x)
     k_host = int(jax.device_get(k))
     result = base.finalize(

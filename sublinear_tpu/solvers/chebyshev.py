@@ -9,7 +9,7 @@ D^-1 A come for free from diagonal dominance (Gershgorin):
 lambda in [1-rho, 1+rho] with rho < 1.
 
 Hot path: identical to Neumann (one SpMV + AXPYs per iteration inside a
-lax.while_loop), so every large-n SpMV optimization (wide gather, dense MXU)
+lax.while_loop), so every large-n SpMV optimization (ELL gather, dense matvec)
 applies unchanged.  Valid for DD systems whose preconditioned spectrum is
 (approximately) real — the same regime the reference's methods target.
 """

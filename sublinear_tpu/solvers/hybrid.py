@@ -6,7 +6,7 @@ decaying blend 0.3*(1 - iter/max) hybrid.rs:263, (3) CG polish; phase
 switching on improvement rate over a convergence window :350-376, global-best
 tracking :383-389).
 
-TPU orchestration: each phase chunk is an independently jitted on-device
+Device orchestration: each phase chunk is an independently jitted on-device
 program; the host only checks the improvement rate between chunks (a handful
 of dispatches, no per-iteration host sync).  Unlike round 1, phase switching
 is the reference's improvement-rate rule, not a fixed budget, the MC blend

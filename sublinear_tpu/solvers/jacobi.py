@@ -4,7 +4,7 @@ Parity target: the JS ``JSSolver`` family (Jacobi/Gauss-Seidel/CG/adaptive,
 /root/reference/src/solver.js:164-652) and the WASM JacobiSolver
 (/root/reference/src/solver_core.rs:39-247).
 
-TPU re-design of Gauss-Seidel/SOR: the textbook sweep is sequential per row
+Device re-design of Gauss-Seidel/SOR: the textbook sweep is sequential per row
 (useless on a vector machine), so we re-express it as *multicolor* GS — a
 greedy graph coloring of the sparsity pattern is computed host-side once, and
 one sweep updates each color class in parallel on the VPU.  Same fixed point,

@@ -9,7 +9,7 @@ iteration matrix is M = I - D^-1 A and
 (The TS port at src/core/solver.ts:117-258 drops the minus sign; we follow the
 mathematically correct Rust form.)
 
-TPU re-design: the entire series accumulates on-device in one
+Device design: the entire series accumulates on-device in one
 ``lax.while_loop``; warm restart (``update_rhs``/initial_guess, reference
 neumann.rs:436-462) is expressed by running the series on the residual
 b - A x0 and adding x0.
@@ -43,16 +43,7 @@ def _neumann_run(op, b, x0, threshold, max_iters, check_every, norm_mode="l2", m
         x, _ = state
         return base.device_norm(op.matvec(x) - b, norm_mode)
 
-    if getattr(op, "chain_ready", False) and check_every > 1:
-        # fully-fused chunk: check_every Neumann iterations in ONE Pallas
-        # kernel with VMEM-resident tables and carried state (ops/xbar.py
-        # _chain_call); the while_loop only runs the convergence check
-        def step_block(state):
-            x, term = state
-            acc, term2 = op.neumann_chain(term, check_every)
-            return x + (acc - term), term2
-    else:
-        step_block = base.repeat_steps(step, check_every)
+    step_block = base.repeat_steps(step, check_every)
 
     state0 = (x0 + term0, term0)
     (state, k, res, change) = base.while_iterate(

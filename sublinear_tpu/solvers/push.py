@@ -6,7 +6,7 @@ x_i += r_i/a_ii, subtract column i of A from the residual) and the
 WorkQueue-ordered graph push (/root/reference/src/solver/forward_push.rs:150-216)
 with threshold r_i >= eps * deg_i.
 
-TPU re-design: a sequential priority queue is useless on a vector machine, so
+Device re-design: a sequential priority queue is useless on a vector machine, so
 each sweep pushes *every* node whose residual passes the threshold at once:
 
     frontier  m = |r| >= max(theta_abs, eta * max|r|)

@@ -6,7 +6,7 @@ matrix p_jk = -a_jk/a_jj with numWalks = max(100, 1/eps^2)
 RandomWalkEngine with antithetic variance reduction
 (/root/reference/src/solver/random_walk.rs:65-230).
 
-TPU re-design (per SURVEY.md §2.7): the reference walks one coordinate at a
+Device re-design (per SURVEY.md §2.7): the reference walks one coordinate at a
 time in a scalar loop; here ALL walkers for ALL requested coordinates advance
 in lockstep as lane-parallel vectors.  We use the *accumulation* estimator of
 the Neumann series x = sum_t M^t c (M = -D^-1 R, c = D^-1 b):

@@ -1,20 +1,20 @@
 """Mixed-precision iterative refinement.
 
-SURVEY.md §7 flags f32-on-TPU vs the f64 reference as "the single biggest
-precision risk": plain f32 solves floor at ~2e-7 relative residual.  This
-module implements classic iterative refinement:
+SURVEY.md §7 flags f32 device arithmetic vs the f64 reference as "the
+single biggest precision risk": plain f32 solves floor at ~2e-7 relative
+residual.  This module implements classic iterative refinement:
 
     repeat:  r = b - A x      (compensated double-float, ON DEVICE)
              solve A d = r    (fast, f32 on device, warm compiled program)
              x = x + d        (double-float accumulation on device)
 
-Round 5 moved the exact residual onto the chip: the matrix rides as an
-exact (hi, lo) f32 pair in slot-major ELL and the residual is evaluated
-with Dekker products + TwoSum accumulation (utils/doublefloat.py) — no
-host O(nnz) work, so refinement scales to operators that exceed host
-memory (BASELINE config #5).  ``residual="host"`` keeps the round-4 host
-f64 path as a cross-check.  Achievable relative residual ~1e-12, matching
-the reference's f64 tolerances (/root/reference/src/optimized_solver.rs).
+The exact residual runs on the device: the matrix rides as an exact
+(hi, lo) f32 pair in slot-major ELL and the residual is evaluated with
+Dekker products + TwoSum accumulation (utils/doublefloat.py) — no host
+O(nnz) work, so refinement scales to operators that exceed host memory
+(BASELINE config #5).  ``residual="host"`` keeps the host f64 path as a
+cross-check.  Achievable relative residual ~1e-12, matching the
+reference's f64 tolerances (/root/reference/src/optimized_solver.rs).
 """
 from __future__ import annotations
 
@@ -65,9 +65,11 @@ def solve_refined(
 ) -> SolverResult:
     """Solve to ``options.epsilon`` in f64-exact residual terms.
 
-    ``residual="device"`` evaluates the exact residual on-chip in
+    ``residual="device"`` evaluates the exact residual on the accelerator in
     compensated double-float (no host O(nnz) work); ``"host"`` keeps the
-    classic host f64 CSR matvec."""
+    classic host f64 CSR matvec.  The CPU backend always takes the host
+    path: XLA:CPU's simplifier cancels the TwoSum compensation (~1e-7
+    error), and there the host f64 matvec is the native exact evaluator."""
     import jax
     import jax.numpy as jnp
 
@@ -83,18 +85,16 @@ def solve_refined(
     # inner f32 solves run to their own floor (slightly looser inner epsilon)
     inner = dataclasses.replace(options, convergence="relative", epsilon=max(options.epsilon, 1e-6))
 
-    # the compensated kernel is EXACT on the TPU backend (6.9e-13 at
-    # n=2000/K=40, device-validated) but XLA:CPU's simplifier cancels the
-    # TwoSum compensation even through optimization barriers (~1e-7) —
-    # on CPU the host f64 path is the native exact evaluator anyway
     from ..config import backend
 
-    use_device = residual == "device" and backend() == "tpu"
+    if residual not in ("device", "host"):
+        from ..errors import InvalidParametersError
+
+        raise InvalidParametersError(
+            f"residual must be 'device' or 'host', got {residual!r}")
+    use_device = residual == "device" and backend() != "cpu"
     if use_device:
-        try:
-            vh, vl, cols_d, bh, bl = _device_residual_state(matrix, b64)
-        except Exception:
-            use_device = False
+        vh, vl, cols_d, bh, bl = _device_residual_state(matrix, b64)
 
     t0 = time.perf_counter()
     total_iters = 0

@@ -5,7 +5,7 @@ Stratified, Adaptive, QuasiMonteCarlo} and a variance-targeted
 `MultiLevelSampler` (/root/reference/src/solver/sampling.rs:9-425, detached
 from the reference build; this is the working re-design).
 
-TPU re-design: strategies are not per-sample branches but *batch generators*
+Device re-design: strategies are not per-sample branches but *batch generators*
 — every strategy produces one lane-parallel walker batch (see
 random_walk._walk_batch).  The per-strategy u-sequence (uniform / stratified
 / randomized golden-ratio QMC) and the proposal distribution (importance =

@@ -9,7 +9,7 @@ applied to a RUNNING solve (/root/reference/src/solver/mod.rs:245,
 neumann.rs:436-462), ``PartialSolution``/``SolutionChunk``
 (src/solver/mod.rs:198-217, src/types.rs:196-211).
 
-TPU design: the device runs ``chunk_iters`` iterations per dispatch (one
+Device design: the device runs ``chunk_iters`` iterations per dispatch (one
 jitted program, warm-restarted from the previous iterate), and the host
 yields a SolutionChunk between dispatches.  Chunk granularity trades stream
 latency against dispatch overhead; the jitted program is compiled once.

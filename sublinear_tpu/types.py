@@ -5,8 +5,8 @@ Parity targets:
   - Rust ``SolverStats``/``SolutionChunk``/``DeltaUpdate`` (/root/reference/src/types.rs:88-211)
   - TS ``SolverConfig``/``SolverResult`` (/root/reference/src/core/types.ts:28-46)
 
-TPU-first deltas from the reference:
-  - default dtype is float32 (TPU has no hardware f64); convergence defaults to
+Device-first deltas from the reference:
+  - default dtype is float32 (f32 device arithmetic); convergence defaults to
     *relative* l2 residual, which is what f32 arithmetic can certify.  Absolute
     mode (the TS default) is available via ``convergence='absolute'``.
   - ``check_every`` controls how often the residual is measured inside the
@@ -86,7 +86,7 @@ class SolverOptions:
     check_every: int = 5
     timeout: Optional[float] = None  # seconds; enforced host-side
     seed: int = 0
-    dtype: Any = None  # resolved per-backend (f32 on TPU, f64 allowed on CPU)
+    dtype: Any = None  # None = float32; float64 needs jax_enable_x64
     # push-specific (reference: forward_push.rs:26-49, alpha=0.15)
     push_alpha: float = 0.15
     # random-walk specific (reference: random_walk.rs:9-29)

@@ -4,7 +4,7 @@ SURVEY.md §5.4: the reference has no durable checkpointing; its closest
 mechanisms are PartialSolution snapshots (/root/reference/src/solver/mod.rs:
 198-217), ``SolverOptions.initial_guess`` and ``update_rhs`` delta updates
 (/root/reference/src/solver/neumann.rs:436-462, src/types.rs:184-193).  The
-TPU build makes the iterate checkpoint first-class: save/load (x, b, method,
+This build makes the iterate checkpoint first-class: save/load (x, b, method,
 residual) and resume any solver via x0 warm start; ``update_rhs`` applies a
 sparse RHS delta and re-solves from the previous iterate.
 """

@@ -1,7 +1,7 @@
 """Device + host memory profiling per solve.
 
 Reference parity: /root/reference/scripts/performance/memory_profiler.py
-(psutil/tracemalloc host snapshots around each operation).  TPU re-design:
+(psutil/tracemalloc host snapshots around each operation).  Device re-design:
 the numbers that matter live on the chip — ``device.memory_stats()``
 (bytes_in_use / peak_bytes_in_use) captured around the operation, plus host
 tracemalloc for the packing side.

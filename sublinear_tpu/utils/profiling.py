@@ -3,7 +3,7 @@
 Parity: ``SolverStats``/``ProfileData`` (/root/reference/src/types.rs:88-251),
 ``PerformanceMonitor`` (/root/reference/src/core/utils.ts:173-218), the
 bandwidth/ops counters (/root/reference/src/matrix/optimized.rs:373-394), in
-the TPU-native form SURVEY.md §5.5 prescribes:
+the device-native form SURVEY.md §5.5 prescribes:
 {method, n, nnz, iters, residual, wall, nnz/s, chips}.
 """
 from __future__ import annotations
@@ -82,7 +82,7 @@ def memory_info() -> dict:
 
 
 class device_trace:
-    """JAX profiler trace context (SURVEY.md §5.1 TPU equivalent of the
+    """JAX profiler trace context (SURVEY.md §5.1 device equivalent of the
     reference's ProfileData): writes a TensorBoard-compatible trace.
 
         with device_trace("/tmp/slt-trace"):

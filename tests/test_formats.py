@@ -119,26 +119,6 @@ def test_padding_is_lane_aligned():
     assert op.n_pad % 128 == 0
 
 
-def test_wide_gather_matvec_matches_narrow():
-    """Wide row-gather container path (large operators) is numerically
-    equivalent to the narrow gather (ARCHITECTURE.md wide-matvec trick)."""
-    from sublinear_tpu.ops import spmv as spmv_mod
-
-    old = spmv_mod.WIDE_GATHER_THRESHOLD
-    spmv_mod.WIDE_GATHER_THRESHOLD = 1  # force the wide path
-    try:
-        A = slt.generate("random-sparse", 300, seed=13, density=0.02)
-        A._prefer = "ell"
-        op = ell_mod.ell_from_csr(A.csr)
-        assert op.gather_aux is not None
-        x = slt.rhs(300, seed=13)
-        x_pad = ell_mod.pad_vector(x, op.m_pad, op.dtype)
-        y = np.asarray(op.matvec(x_pad))[:300]
-        np.testing.assert_allclose(y, A.to_dense() @ x, rtol=2e-5, atol=1e-4)
-    finally:
-        spmv_mod.WIDE_GATHER_THRESHOLD = old
-
-
 def test_one_by_one_matrix():
     A = slt.Matrix.from_dense(np.array([[4.0]]))
     r = slt.solve(A, [8.0], method="neumann")

@@ -1,5 +1,5 @@
-"""Compiled-HLO collective assertions: the "collectives ride ICI" story as a
-regression-proof invariant.
+"""Compiled-HLO collective assertions: the sharded solvers' communication
+pattern as a regression-proof invariant.
 
 Without multi-chip hardware, the strongest checkable evidence that the
 sharded solvers communicate as designed is the *compiled program itself*:
@@ -18,19 +18,15 @@ Reference scale story being pinned down: SURVEY.md §5.7/§5.8 (the reference's
 rayon row-chunk matvec, /root/reference/src/matrix/optimized.rs:397-449, has
 no distributed analog to check against).
 """
-import re
-
-import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
-from jax.sharding import NamedSharding, PartitionSpec as P
 
 import sublinear_tpu as slt
-from sublinear_tpu.formats import ell as _ell
-from sublinear_tpu.parallel import sharded as sh
+from sublinear_tpu.parallel.hlo import count_defs as _count_defs
+from sublinear_tpu.parallel.hlo import while_body as _while_body
 from sublinear_tpu.parallel.mesh import make_mesh
+from sublinear_tpu.parallel.sharded import lower_explicit_cg_text
 
 
 @pytest.fixture(scope="module")
@@ -39,61 +35,10 @@ def mesh8():
     return make_mesh(jax.devices()[:8])
 
 
-# ------------------------------------------------------------------ helpers
-
-def _count_defs(text: str, op: str) -> int:
-    """Count HLO instruction DEFINITIONS of ``op`` (``... = <shape> op(...)``).
-    Operand references (`%op.7`) carry no opening paren, so ``" op("`` counts
-    each instruction exactly once; `op-start`/`op-done` async pairs count as
-    one via the -start form."""
-    plain = len(re.findall(rf" {re.escape(op)}\(", text))
-    start = len(re.findall(rf" {re.escape(op)}-start\(", text))
-    return plain + start
-
-
-def _computations(text: str) -> dict:
-    """Split optimized-HLO text into {computation_name: body_text}."""
-    comps = {}
-    name, lines = None, []
-    for line in text.splitlines():
-        m = re.match(r"^(?:ENTRY )?%?([\w.\-]+)(?: \([^)]*\))? .*{\s*$", line)
-        if m and ("{" in line):
-            name, lines = m.group(1), []
-            continue
-        if line.startswith("}") and name is not None:
-            comps[name] = "\n".join(lines)
-            name, lines = None, []
-            continue
-        if name is not None:
-            lines.append(line)
-    return comps
-
-
-def _while_body(text: str) -> str:
-    """Return the text of the while-loop body computation (the per-iteration
-    program). Fails loudly if no while op is present."""
-    m = re.search(r"while\([^)]*\), condition=%?([\w.\-]+), body=%?([\w.\-]+)", text)
-    assert m, "no while instruction found in optimized HLO"
-    comps = _computations(text)
-    body_name = m.group(2)
-    assert body_name in comps, f"while body {body_name} not found in {list(comps)[:8]}"
-    return comps[body_name]
-
-
 def _compile_explicit_cg(mesh, n=512, density=0.02):
     A = slt.generate("random-sparse", n, seed=0, density=density)
-    op = sh.shard_operator_split(A, mesh)
-    vec_sh = NamedSharding(mesh, P("rows"))
-    b = slt.rhs(n, seed=0)
-    b_local = jax.device_put(
-        _ell.pad_vector(np.asarray(b, np.float64), op.n_pad, op.dtype), vec_sh)
-    x0 = jax.device_put(jnp.zeros(op.n_pad, op.dtype), vec_sh)
-    fn = sh._explicit_cg_factory(mesh)
-    lowered = fn.lower(op.vals_loc, op.cols_loc, op.vals_rem, op.cols_rem,
-                       op.tail_vals, op.tail_rows, op.tail_cols,
-                       op.inv_diag, b_local, x0,
-                       jnp.asarray(1e-6, op.dtype), jnp.int32(100))
-    return lowered.compile().as_text()
+    return lower_explicit_cg_text(A, slt.rhs(n, seed=0), mesh,
+                                  slt.SolverOptions(max_iterations=100))
 
 
 # -------------------------------------------------------------------- tests
@@ -142,85 +87,3 @@ def test_pagerank_sharded_one_allgather_per_iteration(mesh8):
     assert _count_defs(body, "collective-permute") == 0
     ar = _count_defs(body, "all-reduce")
     assert 1 <= ar <= 2, f"dangling-mass + residual psums, got {ar}"
-
-
-def test_explicit_cg_xbar_local_same_collectives(mesh8):
-    """VERDICT r4 #4: the sharded CG with the crossbar LOCAL kernel must
-    (a) produce correct solutions and (b) keep the collective pattern of the
-    split-ELL schedule (ONE all-gather per iteration, psums, nothing else) —
-    the flagship kernel rides per-chip, communication stays identical."""
-    D = 8
-    n = D * 16384  # per-shard row space must tile the 16384 routing grid
-    rng = np.random.default_rng(3)
-    deg = 5
-    cnt = n * deg
-    r = rng.integers(0, n, cnt); c = rng.integers(0, n, cnt)
-    v = rng.uniform(-1, 1, cnt)
-    off = r != c
-    r, c, v = r[off], c[off], v[off]
-    rows = np.r_[r, c]; cols = np.r_[c, r]; vals = np.r_[v, v]
-    dg = np.zeros(n); np.add.at(dg, rows, np.abs(vals))
-    rows = np.r_[rows, np.arange(n)]; cols = np.r_[cols, np.arange(n)]
-    vals = np.r_[vals, dg * 1.3 + 1.0]
-    from sublinear_tpu.matrix import Matrix
-
-    A = Matrix.from_coo(rows, cols, vals, (n, n))
-    xop = sh.shard_operator_xbar(A, mesh8)
-    assert xop is not None, "uniform per-shard xbar packs must exist here"
-    b = np.random.default_rng(4).standard_normal(n)
-
-    res = sh.solve_cg_sharded(A, b, mesh=mesh8, mode="explicit-xbar",
-                              options=slt.SolverOptions(epsilon=1e-6,
-                                                        max_iterations=200))
-    assert res.converged, res.residual
-    rel = np.linalg.norm(A.csr.matvec(res.solution) - b) / np.linalg.norm(b)
-    assert rel < 5e-6, rel
-
-    # compile and pin the collective pattern
-    op = xop.base
-    vec_sh = NamedSharding(mesh8, P(sh.ROWS))
-    b_local = jax.device_put(jnp.zeros(op.n_pad, op.dtype), vec_sh)
-    x0 = jax.device_put(jnp.zeros(op.n_pad, op.dtype), vec_sh)
-    fn = sh._explicit_cg_xbar_factory(mesh8, xop.geom)
-    txt = fn.lower(xop.idx_src, xop.val_src, xop.idx2, xop.idx3,
-                   op.vals_rem, op.cols_rem,
-                   op.tail_vals, op.tail_rows, op.tail_cols,
-                   op.diag, op.inv_diag, b_local, x0,
-                   jnp.asarray(1e-6, op.dtype),
-                   jnp.int32(100)).compile().as_text()
-    # interpret-mode pallas inserts its own while loops on the CPU mesh, so
-    # the body-extraction heuristic is ambiguous here; pin WHOLE-program
-    # counts instead — identical to the split-ELL program's totals
-    # (prologue matvec + loop body = 2 all-gathers, psums merged <= 3)
-    assert _count_defs(txt, "all-gather") == 2, \
-        "xbar-local CG must keep the split-ELL all-gather pattern"
-    ar = _count_defs(txt, "all-reduce")
-    assert 1 <= ar <= 4, f"unexpected all-reduce count: {ar}"
-    assert _count_defs(txt, "all-to-all") == 0
-    assert _count_defs(txt, "collective-permute") == 0
-
-
-def test_explicit_neumann_xbar_local(mesh8):
-    """Sharded Neumann with the crossbar LOCAL kernel: correct solutions and
-    the split-ELL collective pattern (one all-gather per matvec, psums)."""
-    D = 8
-    n = D * 16384
-    rng = np.random.default_rng(5)
-    cnt = n * 5
-    r = rng.integers(0, n, cnt); c = rng.integers(0, n, cnt)
-    v = rng.uniform(-1, 1, cnt)
-    off = r != c
-    r, c, v = r[off], c[off], v[off]
-    dg = np.zeros(n); np.add.at(dg, r, np.abs(v))
-    rows = np.r_[r, np.arange(n)]; cols = np.r_[c, np.arange(n)]
-    vals = np.r_[v, dg * 1.5 + 1.0]
-    from sublinear_tpu.matrix import Matrix
-
-    A = Matrix.from_coo(rows, cols, vals, (n, n))
-    b = np.random.default_rng(6).standard_normal(n)
-    res = sh.solve_neumann_sharded(
-        A, b, mesh=mesh8, mode="explicit-xbar",
-        options=slt.SolverOptions(epsilon=1e-6, max_iterations=200))
-    assert res.converged, res.residual
-    rel = np.linalg.norm(A.csr.matvec(res.solution) - b) / np.linalg.norm(b)
-    assert rel < 5e-6, rel

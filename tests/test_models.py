@@ -8,7 +8,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from sublinear_tpu.models import (
+# models/ needs flax, which the solver path does not; machines without it
+# (the GPU host) skip this module instead of failing to collect it
+pytest.importorskip("flax")
+
+from sublinear_tpu.models import (  # noqa: E402
     KalmanFilter,
     SolverGate,
     GateConfig,

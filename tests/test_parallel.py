@@ -1,7 +1,7 @@
 """Distributed solver tests on the 8-device virtual CPU mesh.
 
 The reference has no multi-node tests (SURVEY.md §4: "Multi-node testing:
-none") — these tests are the TPU build's addition: row-partitioned CG via
+none") — these tests are this build's addition: row-partitioned CG via
 GSPMD placement and via explicit shard_map collectives, plus batched RHS
 sharded over the batch axis.
 """
@@ -12,7 +12,7 @@ import jax
 
 import sublinear_tpu as slt
 from conftest import make_dd_system
-from sublinear_tpu.parallel.mesh import factor2, make_mesh
+from sublinear_tpu.parallel.mesh import make_mesh
 from sublinear_tpu.parallel.sharded import solve_batch, solve_cg_sharded
 
 
@@ -29,14 +29,9 @@ def spd_system(n=300, seed=0):
     return A, b, x_ref
 
 
-def test_factor2():
-    assert factor2(8) == (4, 2)
-    assert factor2(7) == (7, 1)
-    assert factor2(16) == (4, 4)
-
-
 def test_mesh_axes(mesh8):
-    assert mesh8.shape == {"rows": 4, "batch": 2}
+    # the default mesh puts every device on the row axis
+    assert mesh8.shape == {"rows": 8, "batch": 1}
 
 
 @pytest.mark.parametrize("mode", ["auto", "explicit"])
@@ -103,7 +98,7 @@ def test_shard_operator_padding(mesh8):
 
     A, _, _ = spd_system(n=100)
     op = shard_operator(A, mesh8)
-    assert op.n_pad % (128 * 4) == 0
+    assert op.n_pad % (128 * 8) == 0
     assert op.tail_nnz == 0
 
 
@@ -167,8 +162,8 @@ def test_large_scale_sharded_smoke(mesh8):
 
 
 def test_batch_solve_small_batch_padded_ell():
-    """nrhs < 8 on an ELL operator pads the container (wide-gather economy)
-    without changing results."""
+    """nrhs < 8 on an ELL operator solves exactly the columns given (no
+    padding columns) with correct results."""
     n = 300
     A = slt.Matrix(slt.generate("tridiagonal", n).csr.add_diagonal(0.5), prefer="ell")
     rng = np.random.default_rng(3)
@@ -478,31 +473,3 @@ def test_sharded_walkers_hotspot_unbiased_or_accounted(mesh8):
     else:
         # truncation happened and was accounted — the contract holds
         assert stats["unserved_walker_mass"] <= stats["total_walker_mass"]
-
-
-def test_solve_batch_small_chain_path():
-    """Small batches route through serialized chain-kernel solves (round-5
-    fast path) with per-column convergence; results must match the big-batch
-    driver and the oracle."""
-    from sublinear_tpu.matrix import Matrix
-    from sublinear_tpu.parallel.sharded import solve_batch
-
-    n, S = 600, 6
-    rng = np.random.default_rng(21)
-    cnt = n * 5
-    r = rng.integers(0, n, cnt); c = rng.integers(0, n, cnt)
-    v = rng.uniform(-1, 1, cnt)
-    off = r != c
-    r, c, v = r[off], c[off], v[off]
-    dg = np.zeros(n); np.add.at(dg, r, np.abs(v))
-    rows = np.r_[r, np.arange(n)]; cols = np.r_[c, np.arange(n)]
-    vals = np.r_[v, dg * 1.5 + 1.0]
-    A = Matrix.from_coo(rows, cols, vals, (n, n), prefer="xbar")
-    if not getattr(A.op(), "chain_ready", False):
-        pytest.skip("pack not chain-ready at this size")
-    B = rng.standard_normal((n, S))
-    res = solve_batch(A, B, slt.SolverOptions(epsilon=1e-6), method="neumann")
-    assert all(rr.converged for rr in res)
-    for j, rr in enumerate(res):
-        rel = np.linalg.norm(A.csr.matvec(rr.solution) - B[:, j]) / np.linalg.norm(B[:, j])
-        assert rel < 5e-6, (j, rel)

@@ -281,17 +281,17 @@ def test_property_sweep_methods_agree(seed):
         )
 
 
+@pytest.mark.gpu
 def test_device_residual_refinement_reaches_1e12():
-    """Round-5: the compensated double-float DEVICE residual (no host
-    O(nnz) work) must reach 1e-12 relative residuals, verified against a
-    host f64 oracle residual.  Exact only on the TPU backend (XLA:CPU's
-    simplifier cancels the TwoSum compensation, so refine.py falls back to
-    the host path there and this test exercises the TPU kernel)."""
+    """The compensated double-float DEVICE residual (no host O(nnz) work)
+    must reach 1e-12 relative residuals, verified against a host f64 oracle
+    residual.  Runs on the GPU: XLA:CPU's simplifier cancels the TwoSum
+    compensation, so refine.py takes the host path on the CPU backend."""
     from sublinear_tpu.config import backend
     from sublinear_tpu.solvers.refine import solve_refined
 
-    if backend() != "tpu":
-        pytest.skip("double-float residual kernel is TPU-exact only")
+    if backend() != "gpu":
+        pytest.skip("needs a CUDA GPU (the CPU backend evaluates the residual on the host)")
     A, b, x_ref = make_dd_system(n=512, density=0.02, seed=33)
     r = solve_refined(A, b, slt.SolverOptions(epsilon=1e-12),
                       max_refinements=6, residual="device")
